@@ -1,0 +1,260 @@
+"""Dense wavefront fill: the static device graph, read packing and the
+full-fill scores.  Port of the global one-piece part of
+``poasta_tpu/aligner/wavefront.py``.
+
+Ranks are the sequential axis, query offsets the lanes and reads the
+batch; rows live in a ring of ``W`` liveness-coloured slots, so the
+working set is O(B·W·L), not O(B·N·L).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from poasta_tpu.graphs.flat import FlatGraph
+
+from ..ops.cuda_fill import fill_scores
+from ..ops.dp_rows import INF, row_update
+
+# rank rows are padded to a multiple of this, as in the reference's
+# default layout; the kernels loop over the true rank count only
+NODE_BUCKET = 64
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _next_pow2(x: int) -> int:
+    v = 1
+    while v < x:
+        v <<= 1
+    return v
+
+
+def _color_ring_slots(n: int, last_use: np.ndarray) -> np.ndarray:
+    """Greedy interval colouring of row lifetimes [r, last_use[r]].
+
+    Maximal runs of the unbranched-chain case (``last_use == r+1``) are
+    coloured by parity against the slots live across the run, vectorised;
+    only ranks inside irregular regions run the heap.
+    """
+    import heapq
+
+    slot_of = np.zeros(n, dtype=np.int32)
+    if n == 0:
+        return slot_of
+    chain = last_use == np.arange(n, dtype=np.int64) + 1
+    # a chain run [a, b] can be bulk-coloured iff no earlier interval is
+    # still live inside it: running max of last_use
+    prev_reach = np.zeros(n, dtype=np.int64)
+    if n > 1:
+        np.maximum.accumulate(last_use[:-1], out=prev_reach[1:])
+    isolated_chain = chain & (prev_reach <= np.arange(n, dtype=np.int64))
+
+    free: list = []
+    live: list = []  # heap of (death_rank, slot)
+    next_slot = 0
+    r = 0
+    while r < n:
+        b = r
+        if isolated_chain[r]:
+            while b + 1 < n and isolated_chain[b + 1]:
+                b += 1
+        if b > r:
+            # maximal chain run [r, b]: two alternating slots suffice
+            while live and live[0][0] < r:
+                _, s = heapq.heappop(live)
+                free.append(s)
+            if free:
+                s0 = free.pop()
+            else:
+                s0 = next_slot
+                next_slot += 1
+            # take the second slot only after releasing intervals that die
+            # exactly at r, as the sequential greedy would at rank r+1
+            while live and live[0][0] < r + 1:
+                _, s = heapq.heappop(live)
+                free.append(s)
+            if free:
+                s1 = free.pop()
+            else:
+                s1 = next_slot
+                next_slot += 1
+            js = np.arange(r, b + 1)
+            slot_of[js] = np.where((js - r) % 2 == 0, s0, s1)
+            # only the last two rows of the run are live past it
+            heapq.heappush(live, (int(last_use[b - 1]), int(slot_of[b - 1])))
+            heapq.heappush(live, (int(last_use[b]), int(slot_of[b])))
+            r = b + 1
+            continue
+        while live and live[0][0] < r:
+            _, s = heapq.heappop(live)
+            free.append(s)
+        if free:
+            s = free.pop()
+        else:
+            s = next_slot
+            next_slot += 1
+        slot_of[r] = s
+        heapq.heappush(live, (int(last_use[r]), s))
+        r += 1
+    return slot_of
+
+
+@dataclass(frozen=True)
+class DeviceGraph:
+    """Static, bucket-padded view of a flat graph, held on one device.
+
+    Everything a fill needs per call is built here once, so a call moves
+    no graph data between host and device.
+    """
+
+    symbols: torch.Tensor  # (Np,) int32; padding rows are symbol -1
+    pred_slots: torch.Tensor  # (Np, P) int32 ring slot per predecessor
+    pred_valid: torch.Tensor  # (Np, P) bool
+    end_rank: torch.Tensor  # () int32, the end node's rank
+    window: int  # ring size W = liveness-colouring peak
+    n_nodes_padded: int
+    n_nodes: int
+    pred_ranks_np: np.ndarray  # (Np, P) predecessor ranks (host)
+    pred_valid_np: np.ndarray  # (Np, P) valid mask (host)
+    end_rank_i: int
+    pred_slots_flat: torch.Tensor  # (Np*P,) int32
+    pred_valid_flat: torch.Tensor  # (Np*P,) int32 0/1
+    meta: torch.Tensor  # (4,) int32 [n_nodes, end_rank, 0, 0]
+    write_slots: torch.Tensor  # (Np,) int32 ring slot each rank writes
+
+    @property
+    def device(self) -> torch.device:
+        return self.symbols.device
+
+    @staticmethod
+    def from_arrays(symbols, pred_slots, pred_valid, pred_ranks, write_slots,
+                    window: int, n_nodes: int, device) -> "DeviceGraph":
+        """Place host arrays (numpy) of a built graph on ``device``."""
+        pred_valid = np.asarray(pred_valid, dtype=bool)
+
+        def put(a):
+            return torch.tensor(a, device=device)  # copies: the graph owns it
+
+        return DeviceGraph(
+            symbols=put(np.asarray(symbols, dtype=np.int32)),
+            pred_slots=put(np.asarray(pred_slots, dtype=np.int32)),
+            pred_valid=put(pred_valid),
+            end_rank=torch.tensor(n_nodes - 1, dtype=torch.int32,
+                                  device=device),
+            window=int(window),
+            n_nodes_padded=int(symbols.shape[0]),
+            n_nodes=int(n_nodes),
+            pred_ranks_np=np.asarray(pred_ranks, dtype=np.int32),
+            pred_valid_np=pred_valid,
+            end_rank_i=int(n_nodes) - 1,
+            pred_slots_flat=put(np.asarray(pred_slots, np.int32).reshape(-1)),
+            pred_valid_flat=put(pred_valid.reshape(-1).astype(np.int32)),
+            # the rank loop runs over the true rank count: padding never runs
+            meta=put(np.asarray([n_nodes, n_nodes - 1, 0, 0], dtype=np.int32)),
+            write_slots=put(np.asarray(write_slots, dtype=np.int32)),
+        )
+
+    @staticmethod
+    def build(flat: FlatGraph, device="cpu") -> "DeviceGraph":
+        n = flat.n_nodes
+        P = _next_pow2(max(1, flat.max_in_degree))
+        np_nodes = _round_up(n, NODE_BUCKET)
+
+        # a rank's row stays live until its last reader (max successor
+        # rank); greedy interval colouring gives W = peak live rows
+        counts = np.diff(flat.pred_ptr.astype(np.int64))
+        readers = np.repeat(np.arange(n, dtype=np.int64), counts)
+        last_use = np.arange(n, dtype=np.int64)
+        np.maximum.at(last_use, flat.pred_idx.astype(np.int64), readers)
+        slot_of = _color_ring_slots(n, last_use)
+        window = max(int(slot_of.max()) + 1 if n else 1, 1)
+
+        symbols = np.full((np_nodes,), -1, dtype=np.int32)
+        symbols[:n] = flat.symbols.astype(np.int32)
+        pred_slots = np.zeros((np_nodes, P), dtype=np.int32)
+        pred_valid = np.zeros((np_nodes, P), dtype=bool)
+        pred_ranks = np.zeros((np_nodes, P), dtype=np.int32)
+        write_slots = np.zeros((np_nodes,), dtype=np.int32)
+        write_slots[:n] = slot_of
+        cols = np.arange(len(flat.pred_idx)) - np.repeat(
+            flat.pred_ptr[:-1].astype(np.int64), counts)
+        preds = flat.pred_idx.astype(np.int64)
+        pred_slots[readers, cols] = slot_of[preds]
+        pred_valid[readers, cols] = True
+        pred_ranks[readers, cols] = preds
+        return DeviceGraph.from_arrays(symbols, pred_slots, pred_valid,
+                                       pred_ranks, write_slots, window, n,
+                                       device)
+
+
+def pack_queries(queries, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack byte-string reads into a padded (B, L) int32 batch + (B,)
+    lengths on ``device``.
+
+    Column ``j`` holds ``q[j-1]`` (offset j consumes query char j-1);
+    column 0 and the padding are 0, which matches no nucleotide symbol.
+    ``L`` is rounded up to a multiple of 128.
+    """
+    maxlen = max((len(q) for q in queries), default=0)
+    L = _round_up(maxlen + 1, 128)
+    arr = np.zeros((len(queries), L), dtype=np.int32)
+    lengths = np.zeros((len(queries),), dtype=np.int32)
+    for b, q in enumerate(queries):
+        arr[b, 1:len(q) + 1] = np.frombuffer(bytes(q), dtype=np.uint8)
+        lengths[b] = len(q)
+    return (torch.as_tensor(arr, device=device),
+            torch.as_tensor(lengths, device=device))
+
+
+def scan_scores(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
+                costs) -> torch.Tensor:
+    """(B,) global scores by a plain rank scan over :func:`row_update`.
+
+    Twin of ``poasta_tpu``'s XLA ``_scores_exec``: the clamped dense
+    recurrence, written independently of the fill kernels and their plain
+    versions, so it can serve as their oracle.
+    """
+    o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
+    B, L = qshift.shape
+    M_ring = torch.full((B, dg.window, L), INF, dtype=torch.int32,
+                        device=qshift.device)
+    D_ring = torch.full_like(M_ring, INF)
+    symbols = dg.symbols.tolist()
+    slots = dg.pred_slots.tolist()
+    wslots = dg.write_slots.tolist()
+    end = dg.end_rank_i
+    for r in range(dg.n_nodes):
+        idx = torch.as_tensor(slots[r], device=qshift.device)
+        pred_M = M_ring.index_select(1, idx)
+        pred_D = D_ring.index_select(1, idx)
+        valid = dg.pred_valid[r]
+        match_cost = torch.where(qshift == symbols[r], 0, x).to(torch.int32)
+        M, _, D = row_update(pred_M, pred_D, valid, match_cost, o, e,
+                             is_start_row=r == 0, free_start=False)
+        if r == end:
+            # virtual end node: a zero-cost hop at the same offset
+            M = torch.where(valid.view(1, -1, 1), pred_M, INF).min(1).values
+            D = torch.full_like(D, INF)
+        M_ring[:, wslots[r]] = M
+        D_ring[:, wslots[r]] = D
+    end_M = M_ring[:, wslots[end]]
+    return end_M.gather(1, lengths.long().view(-1, 1))[:, 0]
+
+
+def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
+                   lengths: torch.Tensor, costs) -> torch.Tensor:
+    """(B,) optimal global alignment scores by the full-width fill.
+
+    On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
+    plain PyTorch version does.
+    """
+    if getattr(costs, "is_two_piece", False):
+        raise NotImplementedError("two-piece costs are not ported yet")
+    return fill_scores(dg, qshift, lengths, costs)

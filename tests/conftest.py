@@ -26,3 +26,8 @@ def reference_tests_dir():
     if not os.path.isdir(REFERENCE_TESTS):
         pytest.skip("reference test data not available")
     return REFERENCE_TESTS
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")

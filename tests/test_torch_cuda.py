@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``: without a card every test skips (decided inside the
+``card`` fixture, never at import).  The machine with the card has no JAX,
+so this file imports none; run it there from the repo root with
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from poasta_tpu_torch import BatchMapper, GapAffine, NativeAligner, POAGraph
+from poasta_tpu_torch import pack_queries
+from poasta_tpu_torch.aligner import banded as tbd
+from poasta_tpu_torch.aligner.wavefront import DeviceGraph
+from poasta_tpu_torch.ops import cuda_fill as cf
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(1)
+
+COSTS = GapAffine(4, 2, 6)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def _mutate(rng, s, d):
+    out = []
+    for ch in s:
+        r = rng.random()
+        if r < d:
+            continue
+        out.append(rng.choice("ACGT") if r < 2 * d else ch)
+        if rng.random() < d:
+            out.append(rng.choice("ACGT"))
+    return "".join(out) or "A"
+
+
+def _case(seed, glen, n_reads, div=0.04, read_len=None):
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(glen))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * glen)
+    for i in range(1, 3):
+        s = _mutate(rng, base, div).encode()
+        _, aln, _ = NativeAligner(g).align(s, COSTS)
+        g.add_alignment_with_weights(f"s{i}", s, aln, [1] * len(s))
+    src = base if read_len is None else (base * (read_len // glen + 1))
+    reads = [_mutate(rng, src[:read_len or glen], div).encode()
+             for _ in range(n_reads)]
+    return g, reads
+
+
+def _banded_prep(flat, dg, lengths, ub, L):
+    lens = lengths.cpu().numpy()
+    ws, width, _, _ = tbd.band_windows(flat, int(lens.min()), int(lens.max()),
+                                       COSTS, ub)
+    return cf.prepare_banded(dg, COSTS, (ws // 128) * 128, width + 128, L)
+
+
+@pytest.mark.parametrize("ub", [120, 400])
+@pytest.mark.parametrize("capped", [False, True])
+def test_banded_kernel_matches_plain(card, ub, capped):
+    g, reads = _case(1, 300, 64)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    prep = _banded_prep(flat, dg, lengths, ub, int(q.shape[1]))
+    max_run = tbd.ins_run_cap(COSTS, ub, prep["width"]) if capped else 0
+    before = cf.banded_end_rows.launches
+    got = cf.banded_end_rows(dg, q, COSTS, prep, max_run)
+    torch.cuda.synchronize()
+    assert cf.banded_end_rows.launches == before + 1
+    assert torch.equal(got, cf.banded_end_rows_plain(dg, q, COSTS, prep,
+                                                     max_run))
+
+
+def test_banded_kernel_rings_in_global_memory(card):
+    """A 6 kb full-width band passes the 227 KB of shared memory with its
+    scratch rows and rings together: the rings move to global memory."""
+    g, reads = _case(2, 6000, 8, div=0.02)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    L = int(q.shape[1])
+    prep = cf.prepare_banded(dg, COSTS, np.zeros(flat.n_nodes, np.int32),
+                             L, L)
+    plan = cf.banded_plan(dg.window, prep["width"], prep["margin"])
+    if plan["placement"] == "smem":
+        pytest.fail(f"expected a global-memory placement, got {plan}")
+    got = cf.banded_end_rows(dg, q, COSTS, prep, 0)
+    assert torch.equal(got, cf.banded_end_rows_plain(dg, q, COSTS, prep, 0))
+    exact = [NativeAligner(g).align(r, COSTS)[0] for r in reads[:2]]
+    scores = cf.banded_scores(dg, q, lengths, COSTS, prep).cpu().numpy()
+    assert list(scores[:2]) == exact
+
+
+@pytest.mark.parametrize("read_len", [None, 12000])
+def test_fill_kernel_matches_plain(card, read_len):
+    """Short rows keep the working set in shared memory; a 12 kb row
+    puts even the scratch rows in global memory."""
+    g, reads = _case(3, 250, 64 if read_len is None else 2,
+                     read_len=read_len)
+    dg = DeviceGraph.build(g.flatten(), device=card)
+    q, lengths = pack_queries(reads, device=card)
+    plan = cf.fill_plan(dg.window, int(q.shape[1]))
+    assert plan["placement"] == ("smem" if read_len is None else "global")
+    before = cf.fill_end_rows.launches
+    got = cf.fill_end_rows(dg, q, COSTS)
+    torch.cuda.synchronize()
+    assert cf.fill_end_rows.launches == before + 1
+    assert torch.equal(got, cf.fill_end_rows_plain(dg, q, COSTS))
+    if read_len is None:
+        na = NativeAligner(g)
+        scores = cf.fill_scores(dg, q, lengths, COSTS).cpu().numpy()
+        assert [int(s) for s in scores[:4]] == \
+            [na.align(r, COSTS)[0] for r in reads[:4]]
+
+
+def test_score_batch_on_card_matches_native(card):
+    g, reads = _case(4, 500, 64, div=0.03)
+    mapper = BatchMapper(g, COSTS, device=card)
+    before = cf.banded_end_rows.launches
+    scores = mapper.score_batch(reads)
+    assert cf.banded_end_rows.launches > before
+    na = NativeAligner(g)
+    assert list(scores) == [na.align(r, COSTS)[0] for r in reads]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_batches_on_card_match_native(card, seed):
+    """Randomised sweep: graph size, divergence and read count drawn from
+    the seed; every score on the card equals the native exact engine's."""
+    rng = random.Random(100 + seed)
+    g, reads = _case(seed, rng.randrange(40, 900), rng.randrange(1, 80),
+                     div=rng.choice([0.01, 0.04, 0.1, 0.15]))
+    mapper = BatchMapper(g, COSTS, device=card)
+    na = NativeAligner(g)
+    assert list(mapper.score_batch(reads)) == \
+        [na.align(r, COSTS)[0] for r in reads]
