@@ -1,6 +1,6 @@
-"""Dense wavefront fill: the static device graph, read packing and the
-full-fill scores.  Port of the global one-piece part of
-``poasta_tpu/aligner/wavefront.py``.
+"""Dense wavefront fill: the static device graph, read packing, the
+full-fill scores, and the dense tables + host backtrace of small batches.
+Port of the global one-piece part of ``poasta_tpu/aligner/wavefront.py``.
 
 Ranks are the sequential axis, query offsets the lanes and reads the
 batch; rows live in a ring of ``W`` liveness-coloured slots, so the
@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from poasta_tpu.aligner.alignment import AlignedPair, Alignment
 from poasta_tpu.graphs.flat import FlatGraph
 
 from ..ops.cuda_fill import fill_scores
@@ -213,14 +214,10 @@ def pack_queries(queries, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
             torch.as_tensor(lengths, device=device))
 
 
-def scan_scores(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
-                costs) -> torch.Tensor:
-    """(B,) global scores by a plain rank scan over :func:`row_update`.
-
-    Twin of ``poasta_tpu``'s XLA ``_scores_exec``: the clamped dense
-    recurrence, written independently of the fill kernels and their plain
-    versions, so it can serve as their oracle.
-    """
+def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int):
+    """Yield (rank, M, I, D) rows of the clamped dense recurrence for ranks
+    0 .. n_ranks-1: a plain rank scan over :func:`row_update`, written
+    independently of the fill kernels and their plain versions."""
     o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
     B, L = qshift.shape
     M_ring = torch.full((B, dg.window, L), INF, dtype=torch.int32,
@@ -230,22 +227,149 @@ def scan_scores(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
     slots = dg.pred_slots.tolist()
     wslots = dg.write_slots.tolist()
     end = dg.end_rank_i
-    for r in range(dg.n_nodes):
+    for r in range(n_ranks):
         idx = torch.as_tensor(slots[r], device=qshift.device)
         pred_M = M_ring.index_select(1, idx)
         pred_D = D_ring.index_select(1, idx)
         valid = dg.pred_valid[r]
         match_cost = torch.where(qshift == symbols[r], 0, x).to(torch.int32)
-        M, _, D = row_update(pred_M, pred_D, valid, match_cost, o, e,
+        M, I, D = row_update(pred_M, pred_D, valid, match_cost, o, e,
                              is_start_row=r == 0, free_start=False)
         if r == end:
             # virtual end node: a zero-cost hop at the same offset
             M = torch.where(valid.view(1, -1, 1), pred_M, INF).min(1).values
+            I = torch.full_like(I, INF)
             D = torch.full_like(D, INF)
         M_ring[:, wslots[r]] = M
         D_ring[:, wslots[r]] = D
-    end_M = M_ring[:, wslots[end]]
+        yield r, M, I, D
+
+
+def scan_scores(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
+                costs) -> torch.Tensor:
+    """(B,) global scores by a plain rank scan over :func:`row_update`.
+
+    Twin of ``poasta_tpu``'s XLA ``_scores_exec``, independent of the fill
+    kernels and their plain versions, so it can serve as their oracle.
+    """
+    end_M = None
+    for r, M, _, _ in _scan_rows(dg, qshift, costs, dg.n_nodes):
+        if r == dg.end_rank_i:
+            end_M = M
     return end_M.gather(1, lengths.long().view(-1, 1))[:, 0]
+
+
+def dp_fill_full(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
+                 costs):
+    """Full fill for the host backtrace: (scores (B,), M, I, D each
+    (Np, B, L) int32).  Twin of ``poasta_tpu``'s XLA ``dp_fill_full``
+    (global spans): the same scan over every padded rank, keeping each
+    rank's rows.  Plain PyTorch on any device; its tables feed
+    :func:`backtrace_dense` only on shapes under the mapper's dense-table
+    budget."""
+    if getattr(costs, "is_two_piece", False):
+        raise NotImplementedError(
+            "dp_fill_full implements the one-piece recurrence; two-piece "
+            "costs are not ported yet")
+    B, L = qshift.shape
+    shape = (dg.n_nodes_padded, B, L)
+    M = torch.empty(shape, dtype=torch.int32, device=qshift.device)
+    I = torch.empty_like(M)
+    D = torch.empty_like(M)
+    for r, m, i, d in _scan_rows(dg, qshift, costs, dg.n_nodes_padded):
+        M[r], I[r], D[r] = m, i, d
+    scores = M[dg.end_rank_i].gather(1, lengths.long().view(-1, 1))[:, 0]
+    return scores, M, I, D
+
+
+def backtrace_dense(flat: FlatGraph, M: np.ndarray, I: np.ndarray,
+                    D: np.ndarray, query: bytes, costs) -> Alignment:
+    """Reconstruct one optimal alignment from converged dense score tables
+    (rank-major: ``M[rank, offset]``).  Numpy twin of
+    ``poasta_tpu.aligner.wavefront.backtrace_dense``.
+
+    Same priority rules as the exact engine's backtrace (diagonal first,
+    predecessors scanned oldest-edge-first, then deletion closure, then
+    insertion closure).  A query prefix that aligns as a leading
+    insertion run against the virtual start node is not emitted as pairs:
+    the alignment starts at the first real-node visit.
+    """
+    o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
+    n = len(query)
+    end_rank = flat.n_nodes - 1
+
+    def preds(r):
+        # CSR stores newest-edge-first; the backtrace scans oldest-first.
+        lst = flat.pred_idx[flat.pred_ptr[r]: flat.pred_ptr[r + 1]]
+        return list(lst[::-1])
+
+    alignment: Alignment = []
+    j = n
+    cur = int(M[end_rank, j])
+    r = None
+    for p in preds(end_rank):
+        if int(M[p, j]) == cur:
+            r = int(p)
+            break
+    if r is None:
+        raise RuntimeError("dense backtrace: no predecessor for end state")
+    state = "M"
+
+    while True:
+        cur = int(M[r, j]) if state == "M" else (
+            int(D[r, j]) if state == "D" else int(I[r, j]))
+        step = None
+        if state == "M":
+            if j > 0:
+                sym_match = int(flat.symbols[r]) == query[j - 1]
+                want = cur if sym_match else cur - x
+                for p in preds(r):
+                    if int(M[p, j - 1]) == want:
+                        step = (int(p), j - 1, "M")
+                        break
+            if step is None and int(D[r, j]) == cur:
+                step = (r, j, "D")
+            if step is None and int(I[r, j]) == cur:
+                step = (r, j, "I")
+        elif state == "D":
+            for p in preds(r):
+                if int(M[p, j]) == cur - o - e:
+                    step = (int(p), j, "M")
+                    break
+            if step is None:
+                for p in preds(r):
+                    if int(D[p, j]) == cur - e:
+                        step = (int(p), j, "D")
+                        break
+        else:  # insertion
+            if j > 0:
+                if int(M[r, j - 1]) == cur - o - e:
+                    step = (r, j - 1, "M")
+                elif int(I[r, j - 1]) == cur - e:
+                    step = (r, j - 1, "I")
+
+        if step is None:
+            break
+
+        bt_r, bt_j, bt_state = step
+        if state == "M" and bt_state in ("D", "I"):
+            r, j, state = bt_r, bt_j, bt_state
+            continue
+
+        node = int(flat.node_of_rank[r])
+        if state == "M":
+            alignment.append(AlignedPair(node, j - 1))
+        elif state == "I":
+            alignment.append(AlignedPair(None, j - 1))
+        else:
+            alignment.append(AlignedPair(node, None))
+
+        if bt_r == 0:  # virtual start node
+            break
+        r, j, state = bt_r, bt_j, bt_state
+
+    alignment.reverse()
+    return alignment
 
 
 def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,

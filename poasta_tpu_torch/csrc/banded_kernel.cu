@@ -51,7 +51,8 @@ __global__ void banded_fill_kernel(
     extern __shared__ int smem[];
     int* rows;
     int* mring;
-    poasta_workspace(mode, smem, gws, global_ints, Wb, &rows, &mring);
+    poasta_workspace(mode, smem, gws, global_ints, (long long)POASTA_ROWS * Wb,
+                     &rows, &mring);
     const int TOT = Wb + 2 * margin;
     const long long ring_ints = (long long)W * TOT;
     int* dring = mring + ring_ints;
@@ -132,7 +133,8 @@ extern "C" int poasta_banded_plan(int W, int Wb, int margin, int* threads,
                                   int* mode, int* smem_bytes,
                                   long long* global_ints) {
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(Wb, banded_ring_ints(W, Wb, margin), &plan);
+    cudaError_t err = poasta_plan(Wb, (long long)POASTA_ROWS * Wb,
+                                    banded_ring_ints(W, Wb, margin), &plan);
     if (err != cudaSuccess) return (int)err;
     *threads = plan.threads;
     *mode = plan.mode;
@@ -148,7 +150,8 @@ extern "C" int poasta_banded_fill(
     int Wb, int margin, int o, int e, int x, int cap, int* end_row, int* gws,
     long long gws_ints, void* stream) {
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(Wb, banded_ring_ints(W, Wb, margin), &plan);
+    cudaError_t err = poasta_plan(Wb, (long long)POASTA_ROWS * Wb,
+                                    banded_ring_ints(W, Wb, margin), &plan);
     if (err != cudaSuccess) return (int)err;
     if (gws_ints < plan.global_ints * (long long)B)
         return (int)cudaErrorInvalidValue;

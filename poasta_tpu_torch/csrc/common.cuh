@@ -1,12 +1,12 @@
 // Shared pieces of the fill kernels: the INF sentinel and the placement
 // of a read's working set (scratch rows + ring buffers).
 //
-// One thread block fills one read.  Its working set is five scratch rows
-// of `row_lanes` int32 lanes plus the M and D rings.  Where the whole set
-// fits in the block's opt-in shared memory (227 KB on an H100) it lives
-// there; otherwise the rings move to a global-memory slab owned by the
-// block, and past that the rows follow.  The kernels address both through
-// generic pointers, so one kernel body serves every placement.
+// One thread block fills one read.  Its working set is its scratch rows
+// (five of `row_lanes` int32 lanes for the fills) plus the M and D rings.
+// Where the whole set fits in the block's opt-in shared memory (227 KB on
+// an H100) it lives there; otherwise the rings move to a global-memory
+// slab owned by the block, and past that the rows follow.  The kernels
+// address both through generic pointers, so one kernel body serves every placement.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,15 +30,17 @@ struct PoastaPlan {
 // ping-pong buffers of the prefix-min scan.
 #define POASTA_ROWS 5
 
-static inline cudaError_t poasta_plan(int row_lanes, long long ring_ints,
-                                      PoastaPlan* plan) {
+// `row_ints` is the size of the scratch-row region (POASTA_ROWS rows of
+// `row_lanes` lanes for the fills; the trace kernel keeps more).
+static inline cudaError_t poasta_plan(int row_lanes, long long row_ints,
+                                      long long ring_ints, PoastaPlan* plan) {
     int dev = 0, optin = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    const long long rows_bytes = 4LL * POASTA_ROWS * row_lanes;
+    const long long rows_bytes = 4LL * row_ints;
     const long long ring_bytes = 4LL * ring_ints;
     int threads = ((row_lanes + 31) / 32) * 32;
     plan->threads = threads < 1024 ? threads : 1024;
@@ -53,26 +55,25 @@ static inline cudaError_t poasta_plan(int row_lanes, long long ring_ints,
     } else {
         plan->mode = PLACE_GLOBAL;
         plan->smem_bytes = 0;
-        plan->global_ints = (long long)POASTA_ROWS * row_lanes + ring_ints;
+        plan->global_ints = row_ints + ring_ints;
     }
     return cudaSuccess;
 }
 
 // Splits a block's working set into (rows, rings) for the chosen placement.
-__device__ __forceinline__ void poasta_workspace(int mode, int* smem, int* gws,
-                                                 long long global_ints,
-                                                 int row_lanes, int** rows,
-                                                 int** rings) {
+__device__ __forceinline__ void poasta_workspace(
+    int mode, int* smem, int* gws, long long global_ints, long long row_ints,
+    int** rows, int** rings) {
     int* g = gws + (long long)blockIdx.x * global_ints;
     if (mode == PLACE_SMEM) {
         *rows = smem;
-        *rings = smem + POASTA_ROWS * row_lanes;
+        *rings = smem + row_ints;
     } else if (mode == PLACE_RINGS_GLOBAL) {
         *rows = smem;
         *rings = g;
     } else {
         *rows = g;
-        *rings = g + (long long)POASTA_ROWS * row_lanes;
+        *rings = g + row_ints;
     }
 }
 

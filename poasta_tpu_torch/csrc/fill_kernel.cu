@@ -41,7 +41,8 @@ __global__ void full_fill_kernel(
     extern __shared__ int smem[];
     int* rows;
     int* mring;
-    poasta_workspace(mode, smem, gws, global_ints, L, &rows, &mring);
+    poasta_workspace(mode, smem, gws, global_ints, (long long)POASTA_ROWS * L,
+                     &rows, &mring);
     const long long ring_ints = (long long)W * L;
     int* dring = mring + ring_ints;
     int* pm_row = rows;
@@ -112,7 +113,8 @@ __global__ void full_fill_kernel(
 extern "C" int poasta_fill_plan(int W, int L, int* threads, int* mode,
                                 int* smem_bytes, long long* global_ints) {
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(L, 2LL * W * L, &plan);
+    cudaError_t err = poasta_plan(L, (long long)POASTA_ROWS * L, 2LL * W * L,
+                                    &plan);
     if (err != cudaSuccess) return (int)err;
     *threads = plan.threads;
     *mode = plan.mode;
@@ -128,7 +130,8 @@ extern "C" int poasta_full_fill(const int* symbols, const int* pred_slots,
                                 int* end_row, int* gws, long long gws_ints,
                                 void* stream) {
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(L, 2LL * W * L, &plan);
+    cudaError_t err = poasta_plan(L, (long long)POASTA_ROWS * L, 2LL * W * L,
+                                    &plan);
     if (err != cudaSuccess) return (int)err;
     if (gws_ints < plan.global_ints * (long long)B)
         return (int)cudaErrorInvalidValue;

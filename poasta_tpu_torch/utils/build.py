@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +29,9 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "poasta_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libpoasta_cuda.so"
+# the first load can come from two threads at once (the serving loop scores
+# the next batch on a worker thread while the main thread traces)
+_LOAD_LOCK = threading.Lock()
 
 
 def _sources() -> list:
@@ -83,9 +87,15 @@ def build() -> dict:
     return {"lib": lib, "seconds": seconds, "log": log}
 
 
-@functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    """Build if needed, load the library and declare its C signatures."""
+    """Build if needed, load the library and declare its C signatures.
+    Thread-safe; later calls return the loaded library."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["lib"])
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pi, pll = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
@@ -98,6 +108,12 @@ def load() -> ctypes.CDLL:
     lib.poasta_fill_plan.restype = i
     lib.poasta_full_fill.argtypes = [p] * 5 + [i] * 9 + [p, p, ll, p]
     lib.poasta_full_fill.restype = i
+    lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll]
+    lib.poasta_trace_plan.restype = i
+    lib.poasta_trace_fill.argtypes = [p] * 8 + [i] * 11 + [p, p, p, ll, p]
+    lib.poasta_trace_fill.restype = i
+    lib.poasta_trace_decode.argtypes = [p] * 6 + [i] * 6 + [p, p, p]
+    lib.poasta_trace_decode.restype = i
     lib.poasta_error_string.argtypes = [i]
     lib.poasta_error_string.restype = ctypes.c_char_p
     return lib

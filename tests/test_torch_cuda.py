@@ -18,6 +18,7 @@ from poasta_tpu_torch import pack_queries
 from poasta_tpu_torch.aligner import banded as tbd
 from poasta_tpu_torch.aligner.wavefront import DeviceGraph
 from poasta_tpu_torch.ops import cuda_fill as cf
+from poasta_tpu_torch.ops import trace as tr
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -146,3 +147,87 @@ def test_random_batches_on_card_match_native(card, seed):
     na = NativeAligner(g)
     assert list(mapper.score_batch(reads)) == \
         [na.align(r, COSTS)[0] for r in reads]
+
+
+def _trace_tier(card, g, reads, Wb):
+    """B18 and the decode against their plain versions at one tier of the
+    device traceback; returns (placement, verified count)."""
+    flat = g.flatten()
+    mapper = BatchMapper(g, COSTS, device=card)
+    scores = mapper.score_batch(reads)
+    dg = mapper.dg
+    q, lengths = pack_queries(reads, device=card)
+    k_tier, k_full = tr.gap_budgets(flat, scores, COSTS, Wb)
+    inp, ok = tr.tier_inputs(dg, flat, q, lengths.cpu().numpy(), k_tier, Wb)
+    before = tr.trace_fill.launches
+    aval, ptr = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb)
+    torch.cuda.synchronize()
+    assert tr.trace_fill.launches == before + 1
+    aval_p, ptr_p = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb)
+    assert torch.equal(aval, aval_p)
+    assert torch.equal(ptr, ptr_p)
+    verified = (aval.cpu().numpy() == scores) & ok
+    t_max = int(-(-(int(lengths.max()) + int(k_full.max()) + 8) // 512) * 512)
+    walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
+            inp["anchor_j"], dg.end_rank_i,
+            torch.as_tensor(verified, device=card), t_max)
+    before = tr.trace_decode.launches
+    ops, done = tr.trace_decode(ptr, *walk)
+    torch.cuda.synchronize()
+    assert tr.trace_decode.launches == before + 1
+    ops_p, done_p = tr.decode_plain(ptr, *walk)
+    assert torch.equal(ops, ops_p)
+    assert torch.equal(done, done_p)
+    return tr.trace_plan(dg.window, Wb)["placement"], int(verified.sum())
+
+
+@pytest.mark.parametrize("Wb", [256, 4096])
+def test_trace_kernels_match_plain(card, Wb):
+    """Rings in shared memory at Wb 256 and in global memory at Wb 4096
+    (W = 4 rings of 4096 lanes pass 227 KB with the scratch rows); the
+    last read carries a 120-base deletion that the first tier cannot
+    verify."""
+    g, reads = _case(5, 300, 63)
+    reads.append(reads[0][:80] + reads[0][200:])
+    placement, n_verified = _trace_tier(card, g, reads, Wb)
+    assert placement == ("smem" if Wb == 256 else "rings-global")
+    assert n_verified >= 60
+
+
+def test_align_batch_traces_on_card(card):
+    """The banded route on the card: every read traced on the device, and
+    the alignments equal the native banded backtrace's."""
+    g, reads = _case(6, 600, 64, div=0.03)
+    mapper = BatchMapper(g, COSTS, device=card)
+    mapper.DENSE_TABLE_BUDGET = 0
+    before = tr.trace_fill.launches
+    out = mapper.align_batch(reads)
+    assert tr.trace_fill.launches > before
+    assert mapper.last_banded_stats["device_traced"] == len(reads)
+    na = NativeAligner(g)
+    for (score, aln), r in zip(out, reads):
+        ns, naln = na.align_banded(r, COSTS, ub=score)
+        assert ns == score
+        assert list(aln) == list(naln)
+
+
+def test_trace_serves_graph_past_reference_gate(card, monkeypatch):
+    """B19 folds into B18: a 45k-rank graph is past the reference's 1 MiB
+    prefetch gate (where it needed the streamed big kernel, or the host);
+    on the default route the one trace kernel aligns it."""
+    monkeypatch.delenv("POASTA_DEVICE_TRACE", raising=False)
+    rng = random.Random(9)
+    base = "".join(rng.choice("ACGT") for _ in range(45000))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * len(base))
+    reads = [_mutate(rng, base, 0.01).encode() for _ in range(2)]
+    mapper = BatchMapper(g, COSTS, device=card)
+    before = tr.trace_fill.launches
+    out = mapper.align_batch(reads)
+    assert tr.trace_fill.launches > before
+    assert mapper.last_banded_stats["device_traced"] == 2
+    na = NativeAligner(g)
+    for (score, aln), r in zip(out, reads):
+        ns, naln = na.align_banded(r, COSTS, ub=score)
+        assert ns == score
+        assert list(aln) == list(naln)

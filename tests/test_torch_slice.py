@@ -169,7 +169,8 @@ def test_clamped_tier_fills_uncapped():
 
 def test_port_imports_no_jax():
     code = ("import sys, poasta_tpu_torch, poasta_tpu_torch.convert, "
-            "poasta_tpu_torch.utils.device, poasta_tpu_torch.utils.build; "
+            "poasta_tpu_torch.utils.device, poasta_tpu_torch.utils.build, "
+            "poasta_tpu_torch.ops.trace, poasta_tpu_torch.cli.lasagna; "
             "assert 'jax' not in sys.modules, sorted(sys.modules)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
