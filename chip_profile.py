@@ -7,11 +7,14 @@ converges the scorer's ub hint with two unprofiled batches, then profiles
 two ``BatchMapper.score_batch`` batches of 1024 reads with
 ``torch.profiler``.  For each it prints the host wall time, the device time
 of the top operations by name, the device's busy and idle shares of the
-wall, and the same batch's unprofiled wall.  Then it profiles the port's
-``lasagna align`` CLI on the same graph and reads (``-j 64``) the same
-way, and splits its host wall by stage (GFA load, mapper set-up, scoring
-on the worker thread, alignment, GAF text).  Needs one card; imports no
-JAX.
+wall, and the same batch's unprofiled wall.  It does the same for one
+batch each of ``chip_smoke.py``'s ends-free and drifting-window traffic:
+the mixed-length SV reads under the global span and under the bench's
+bounded ends-free span, and the semi-global fragments on the uniform
+graph.  Then it profiles the port's ``lasagna align`` CLI on the uniform
+graph and reads (``-j 64``) the same way, and splits its host wall by
+stage (GFA load, mapper set-up, scoring on the worker thread, alignment,
+GAF text).  Needs one card; imports no JAX.
 """
 
 import os
@@ -26,23 +29,56 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "False")
     sys.path.insert(0, REPO)
-    from chip_smoke import uniform_workload
-    from poasta_tpu_torch import BatchMapper, GapAffine
+    from chip_smoke import (
+        N_READS,
+        fragment_reads,
+        sv_workload,
+        uniform_workload,
+    )
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        EndsFree,
+        GapAffine,
+        included,
+    )
     from poasta_tpu_torch.utils.device import card_info, cuda_device
 
     card = card_info()
+    dev = cuda_device()
     costs = GapAffine(4, 2, 6)
-    graph, _, reads = uniform_workload(costs)
-    mapper = BatchMapper(graph, costs, device=cuda_device())
+    graph, seqs, reads = uniform_workload(costs)
+    profile_batches("uniform", BatchMapper(graph, costs, device=dev), reads,
+                    2, card)
+    gsv, sv_reads = sv_workload(costs)
+    profile_batches("mixed_len", BatchMapper(gsv, costs, device=dev),
+                    sv_reads, 1, card)
+    bench_span = EndsFree(UNBOUNDED, included(50), included(0), included(50))
+    profile_batches("mixed_len bounded span",
+                    BatchMapper(gsv, costs, device=dev, aln_type=bench_span),
+                    sv_reads, 1, card)
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    profile_batches("fragments semi-global",
+                    BatchMapper(graph, costs, device=dev, aln_type=semi),
+                    fragment_reads(seqs, N_READS, 2000, 4000), 1, card)
+    profile_lasagna(graph, reads, card)
+    return 0
+
+
+def profile_batches(what, mapper, reads, reps, card):
+    """Two unprofiled ``score_batch`` calls (they converge the ub hint),
+    then ``reps`` profiled ones, each followed by an unprofiled one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     mapper.score_batch(reads)
     mapper.score_batch(reads)
-    for rep in range(2):
+    for rep in range(reps):
         mapper.scorer.reset_stats()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -51,16 +87,14 @@ def main() -> int:
             mapper.score_batch(reads)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _report(f"batch {rep}", prof, wall, f"stats {mapper.scorer.stats}",
-                card)
+        _report(f"{what} batch {rep}", prof, wall,
+                f"stats {mapper.scorer.stats}", card)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mapper.score_batch(reads)
         torch.cuda.synchronize()
         print(f"[profile]   unprofiled wall "
               f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
-    profile_lasagna(graph, reads, card)
-    return 0
 
 
 def _report(what, prof, wall, extra, card):
@@ -100,7 +134,7 @@ def profile_lasagna(graph, reads, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import poasta_tpu.io as io_mod
+    import poasta_tpu_torch.io as io_mod
     from chip_smoke import write_inputs
     from poasta_tpu_torch.cli.lasagna import main as lasagna_main
     from poasta_tpu_torch.parallel import mapper as mapper_mod

@@ -41,6 +41,40 @@ Phase 6 drives alignment, the second main path:
   gate) on the default route, and again with ``POASTA_DEVICE_TRACE=0``:
   alignments must be equal, and every read traced on the device.
 
+Phase 7 drives ends-free and drifting-window scoring, the third main path,
+each run with every launch counter zeroed just before and read just after:
+
+* 7a the bench's mixed-length SV traffic (a 5,000-base graph with a 4 kb
+  deletion allele, 1024 reads at 1.5%, half from each allele) through
+  ``BatchMapper.score_batch``: drifting windows (B3), against the same with
+  drift switched off, the plain path and the native engine;
+* 7b the same reads under the bench's bounded ends-free span
+  (``EndsFree(UNBOUNDED, included(50), included(0), included(50))``): drift
+  x ends-free (B6), against drift switched off and the exact full fill,
+  and two short reads against the exact A* engine;
+* 7c 1024 fragments of 2,000-4,000 bases cut from the uniform graph's four
+  sequences (95% at 3%, 5% at 15%) under the CLI's semi-global span:
+  ``score_batch`` on all of them (one exact full-width tier of the
+  ends-free banded fill B5), then, sorted by length into quarters as the
+  CLI batches reads, ``BandedScorer.scores(max_retries=1)``: a quarter of
+  short fragments is again one exact full-width B5 tier; a quarter of long
+  ones has a band narrower than the row, and what its one B5 tier does not
+  verify takes the capped ladder over the bounded full fill B4; against
+  the plain path, the exact full fill, and the exact A* engine on short
+  fragments through the same mapper;
+* 7d holds B3, B4, B5 and B6 against their plain versions at the inputs
+  7a-7c gave them.
+
+The ``kernels`` line gives, for every kernel, its launches on the main
+paths, its time and its plain version's at the main path's shapes, and
+``bound_ms``: the least time the card could take for the same work, the
+larger of the bytes the function must move (each input read once, each
+output written once) over 3.35 TB/s and the integer operations its
+recurrence needs (``RECURRENCE_OPS`` and the constants beside it: what the
+function needs, not what the kernel spends) over the card's int32 rate
+(``INT32_OPS_PER_S``).  No single PyTorch call computes any of these
+recurrences, so ``library_ms`` is null throughout.
+
 Any failure raises.  The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -54,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import ExitStack
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -63,7 +98,18 @@ B1_REPLACES = "poasta_tpu/ops/pallas_fill.py:2007"
 B2_REPLACES = "poasta_tpu/ops/pallas_fill.py:304"
 B18_REPLACES = "poasta_tpu/ops/pallas_trace.py:121"
 DECODE_REPLACES = "poasta_tpu/ops/pallas_trace.py:720"
+B3_REPLACES = "poasta_tpu/ops/pallas_fill.py:2822"
+B4_REPLACES = "poasta_tpu/ops/pallas_fill.py:461"
+B5_REPLACES = "poasta_tpu/ops/pallas_fill.py:2625"
+B6_REPLACES = "poasta_tpu/ops/pallas_fill.py:3087"
 HYBRID_READS = 32
+SV_SEED, SV_DIV, FRAG_SEED = 13, 0.015, 19
+# One H100 SXM, from NVIDIA's data sheet: 3.35 TB/s of HBM3, and 67 TFLOP/s
+# of fp32 outside the tensor cores.  An SM starts 64 int32 add/min/compare a
+# cycle beside 128 fp32 FMAs (which count as two), so the int32 rate is a
+# quarter of the fp32 figure.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 BIG_GRAPH_LEN, BIG_READS, BIG_SEED, BIG_DIV = 45000, 16, 9, 0.01
 
 
@@ -88,21 +134,24 @@ def _fused_graph(rng, costs, glen, n_seqs, div):
     base = "".join(rng.choice("ACGT") for _ in range(glen))
     graph = POAGraph()
     graph.add_alignment_with_weights("s0", base.encode(), None, [1] * glen)
+    seqs = [base]
     for i in range(1, n_seqs):
-        seq = _mutate(rng, base, div, glen).encode()
+        seqs.append(_mutate(rng, base, div, glen))
+        seq = seqs[-1].encode()
         _, aln, _ = NativeAligner(graph).align(seq, costs)
         graph.add_alignment_with_weights(f"s{i}", seq, aln, [1] * len(seq))
-    return graph, base
+    return graph, base, seqs
 
 
 def uniform_workload(costs):
-    """bench.py's ``build_uniform`` configuration (seed 7): the graph, its
-    base sequence and 1024 reads at 3% divergence."""
+    """bench.py's ``build_uniform`` configuration (seed 7): the graph, the
+    four sequences fused into it (the base first) and 1024 reads at 3%
+    divergence."""
     rng = random.Random(SEED)
-    graph, base = _fused_graph(rng, costs, GRAPH_LEN, N_SEQS, DIV)
+    graph, base, seqs = _fused_graph(rng, costs, GRAPH_LEN, N_SEQS, DIV)
     reads = [_mutate(rng, base, DIV, GRAPH_LEN).encode()
              for _ in range(N_READS)]
-    return graph, base, reads
+    return graph, seqs, reads
 
 
 def mixed_reads(base):
@@ -111,6 +160,106 @@ def mixed_reads(base):
     rng = random.Random(MIXED_SEED)
     return [_mutate(rng, base, 0.15 if i % 20 == 0 else 0.02).encode()
             for i in range(N_READS)]
+
+
+def sv_workload(costs):
+    """bench.py's mixed-length SV configuration (seed 13): a 5,000-base
+    graph fused with its 4 kb-deletion allele, and 1024 reads at 1.5%, every
+    other one from the short allele."""
+    from poasta_tpu_torch import NativeAligner, POAGraph
+
+    rng = random.Random(SV_SEED)
+    base = "".join(rng.choice("ACGT") for _ in range(GRAPH_LEN))
+    variant = base[:500] + base[4500:]
+    graph = POAGraph()
+    graph.add_alignment_with_weights("s0", base.encode(), None,
+                                     [1] * GRAPH_LEN)
+    _, aln, _ = NativeAligner(graph).align(variant.encode(), costs)
+    graph.add_alignment_with_weights("s1", variant.encode(), aln,
+                                     [1] * len(variant))
+    reads = [_mutate(rng, base if i % 2 else variant, SV_DIV).encode()
+             for i in range(N_READS)]
+    return graph, reads
+
+
+def fragment_reads(seqs, n_reads, lo, hi):
+    """Fragments of ``lo``..``hi`` bases cut from the graph's sequences
+    (seed 19): every 20th at 15% divergence, the rest at 3%."""
+    rng = random.Random(FRAG_SEED)
+    out = []
+    for i in range(n_reads):
+        seq = rng.choice(seqs)
+        n = rng.randrange(lo, hi + 1)
+        a = rng.randrange(0, len(seq) - n + 1)
+        out.append(_mutate(rng, seq[a:a + n],
+                           0.15 if i % 20 == 0 else DIV).encode())
+    return out
+
+
+def _bound(bytes_moved, ops):
+    """The least time the card could take, in ms, and what sets it."""
+    by = bytes_moved / HBM_BYTES_PER_S * 1e3
+    op = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by, op),
+            "bound_by": "bytes" if by >= op else "operations",
+            "library_ms": None}
+
+
+# Integer operations per lane and rank that the one-piece recurrence needs,
+# whatever the kernel spends: D (add, add, min), the diagonal
+# (compare-select, add), A (min), I (add, clamp), M (min), the stored D's
+# clamp.
+RECURRENCE_OPS = 10
+# A truncated prefix-min needs at most three mins per lane whatever its
+# window (van Herk / Gil-Werman: a forward and a backward scan over blocks
+# of the window's length, and one min to join them).  The kernels' own
+# Hillis-Steele rounds, log2(cap) of them, belong to the implementation and
+# are not counted.
+SCAN_OPS = 3
+# The trace fill (B18) beside RECURRENCE_OPS less the clamp it does not
+# apply (9): which branch opened D and its column (compare, select), M's
+# source (two compares, two selects), I's source (add, compare), and the
+# pointer word (four fields shifted into place, two three-input ors).
+TRACE_OPS = 9 + 2 + 4 + 2 + 6
+# Per predecessor row after the first: a min each for M and D; with the
+# argmin (B18) a compare, a select and a min each.
+PRED_OPS, TRACE_PRED_OPS = 2, 6
+# One decode step, from trace_decode_kernel's body: the lane (subtract, two
+# clamps), five fields unpacked (an and, four shift-and pairs), the action
+# by state (2), the hop test (3), the op code (3), the next rank (2
+# selects), consumes (2), the step word (shift, or), done (3), the next
+# state (3), the next offset (1).
+DECODE_OPS = 3 + 9 + 2 + 3 + 3 + 2 + 2 + 2 + 3 + 3 + 1
+# ... and its bytes: a pointer word and a window start in, a step word out.
+DECODE_BYTES = 12
+
+
+def fill_bound(dg, B, lanes, q_lanes, out_lanes, tilted,
+               per_pred=PRED_OPS, per_rank=RECURRENCE_OPS, table_cols=0):
+    """Bound of one fill of B reads over ``lanes`` lanes at each of the
+    graph's ranks.  Operations per lane and rank: ``per_pred`` for every
+    predecessor row after a rank's first, ``per_rank`` (the recurrence and a
+    variant's extras), SCAN_OPS, and for an untilted fill the e*j subtract
+    and add.  Bytes: the query rows and rank tables in, the output rows
+    out, each once."""
+    P = int(dg.pred_slots.shape[1])
+    n = dg.n_nodes
+    extra_preds = int(dg.pred_valid_np[:n, 1:].sum())
+    ops = B * lanes * (per_pred * extra_preds + n * (
+        per_rank + SCAN_OPS + (0 if tilted else 2)))
+    table_ints = n * (2 + 2 * P + table_cols)
+    return _bound(4 * (B * q_lanes + table_ints + B * out_lanes), ops)
+
+
+_PHASE_START = [time.perf_counter()]
+
+
+def _phase_done(name):
+    """Print the host seconds since the previous phase ended (where the
+    script's own run time goes)."""
+    now = time.perf_counter()
+    print(f"[time] {name}: {now - _PHASE_START[0]:.1f} s", flush=True)
+    _PHASE_START[0] = now
 
 
 def _time_ms(fn, reps):
@@ -129,14 +278,17 @@ def _time_ms(fn, reps):
     return statistics.median(ts)
 
 
-def _compare(name, kernel_fn, plain_fn, card, reps=5, plain_reps=3):
+def _compare(name, kernel_fn, plain_fn, card, reps=5):
     """Kernel against plain version on the same inputs: raw rows must be
-    equal; returns the measured numbers.  The checking call of each side
-    is its warm-up."""
+    equal; returns the measured numbers.  The kernel's checking call is its
+    warm-up; the plain version (seconds of host-driven torch ops, no
+    compile step) is called once, and that call is the one timed."""
     import torch
 
     got = kernel_fn()
-    ref = plain_fn()
+    kept = []
+    plain_ms = _time_ms(lambda: kept.append(plain_fn()), 1)
+    ref = kept[0]
     torch.cuda.synchronize()
     gots = got if isinstance(got, tuple) else (got,)
     refs = ref if isinstance(ref, tuple) else (ref,)
@@ -146,7 +298,6 @@ def _compare(name, kernel_fn, plain_fn, card, reps=5, plain_reps=3):
         raise AssertionError(f"{name}: kernel and plain outputs differ "
                              f"(max abs err {err})")
     ms = _time_ms(kernel_fn, reps)
-    plain_ms = _time_ms(plain_fn, plain_reps)
     shapes = [tuple(g.shape) for g in gots]
     print(f"[kernels] {name}: equal outputs {shapes}, kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]", flush=True)
@@ -196,7 +347,8 @@ def main() -> int:
     build.load()
 
     # ---- 3. kernels against their plain versions on the card ------------
-    graph, base, reads = uniform_workload(costs)
+    graph, seqs, reads = uniform_workload(costs)
+    base = seqs[0]
     flat = graph.flatten()
     mapper = BatchMapper(graph, costs, device=dev)
     dg = mapper.dg
@@ -218,7 +370,7 @@ def main() -> int:
         return prep, max_run
 
     small_rng = random.Random(3)
-    sg, sbase = _fused_graph(small_rng, costs, 260, 4, 0.04)
+    sg, sbase, _ = _fused_graph(small_rng, costs, 260, 4, 0.04)
     s_reads = [_mutate(small_rng, sbase, DIV).encode() for _ in range(64)]
     s_dg = DeviceGraph.build(sg.flatten(), device=dev)
     sq, sl = pack_queries(s_reads, device=dev)
@@ -246,7 +398,7 @@ def main() -> int:
                  card)
 
     mid_rng = random.Random(5)
-    mg, mbase = _fused_graph(mid_rng, costs, 1000, 4, 0.04)
+    mg, mbase, _ = _fused_graph(mid_rng, costs, 1000, 4, 0.04)
     m_reads = [_mutate(mid_rng, mbase, DIV).encode() for _ in range(256)]
     m_dg = DeviceGraph.build(mg.flatten(), device=dev)
     mq, _ = pack_queries(m_reads, device=dev)
@@ -256,6 +408,7 @@ def main() -> int:
     _compare("B2 mid", lambda: cf.fill_end_rows(m_dg, mq, costs),
              lambda: cf.fill_end_rows_plain(m_dg, mq, costs), card)
 
+    _phase_done("1-3 set-up, build, kernels at small shapes")
     # ---- 4. main path ---------------------------------------------------
     # the fills' inputs are recorded (last call per run) so that phase 4b
     # can hold each kernel against its plain version at the path's shapes
@@ -342,12 +495,12 @@ def main() -> int:
           f"the plain path's on the card (uniform plain path {plain_s:.1f} "
           f"s, one cold call)", flush=True)
 
+    # the exact engine takes ~13 s a 5 kb read, so it checks one; its banded
+    # mode checks 64
     na = NativeAligner(graph)
-    for i in range(4):
-        exact = na.align(reads[i], costs)[0]
-        if exact != int(scores[i]):
-            raise AssertionError(f"read {i}: native {exact}, port "
-                                 f"{int(scores[i])}")
+    exact = na.align(reads[0], costs)[0]
+    if exact != int(scores[0]):
+        raise AssertionError(f"read 0: native {exact}, port {int(scores[0])}")
     native64 = [na.align_banded(q, costs)[0] for q in reads[:64]]
     if list(map(int, scores[:64])) != native64:
         raise AssertionError("first 64 scores differ from the native "
@@ -359,10 +512,11 @@ def main() -> int:
     if [int(mixed_scores[i]) for i in tail] != native_tail:
         raise AssertionError("mixed 15% reads differ from the native "
                              "banded engine's")
-    print("[main] uniform reads 0-3 equal NativeAligner.align, reads 0-63 "
+    print("[main] uniform read 0 equals NativeAligner.align, reads 0-63 "
           f"NativeAligner.align_banded; mixed 15% reads {tail} equal "
           "NativeAligner.align_banded", flush=True)
 
+    _phase_done("4 uniform and mixed scoring, plain paths, native checks")
     # ---- 4b. each kernel at the shapes the main path gave it -------------
     results = {}
     g_dg, q, c, p, max_run = captured[("uniform", "B1")]
@@ -374,15 +528,20 @@ def main() -> int:
     results["B1"] = _compare(
         "B1 main path", lambda: cf.banded_end_rows(g_dg, q, c, p, max_run),
         lambda: cf.banded_end_rows_plain(g_dg, q, c, p, max_run), card,
-        reps=3, plain_reps=1)
+        reps=3)
+    results["B1"].update(fill_bound(
+        g_dg, int(q.shape[0]), p["width"], int(q.shape[1]), p["width"],
+        tilted=True, table_cols=1 + int(g_dg.pred_slots.shape[1])))
     g_dg, q, c = captured[("mixed", "B2")]
     print(f"[kernels] B2 main path (mixed tail): {int(q.shape[0])} reads, L "
           f"{int(q.shape[1])}, plan "
           f"{cf.fill_plan(g_dg.window, int(q.shape[1]))}", flush=True)
     results["B2"] = _compare(
         "B2 main path", lambda: cf.fill_end_rows(g_dg, q, c),
-        lambda: cf.fill_end_rows_plain(g_dg, q, c), card, reps=3,
-        plain_reps=1)
+        lambda: cf.fill_end_rows_plain(g_dg, q, c), card, reps=3)
+    results["B2"].update(fill_bound(
+        g_dg, int(q.shape[0]), int(q.shape[1]), int(q.shape[1]),
+        int(q.shape[1]), tilted=False))
 
     # ---- 5. forced whole-batch full-fill fallback -----------------------
     q64, l64 = q_all[:64].contiguous(), l_all[:64].contiguous()
@@ -398,25 +557,44 @@ def main() -> int:
     print(f"[fallback] ub 8, one attempt: {b2_fb} B2 launch(es), 64 scores "
           f"equal the native engine's", flush=True)
 
+    _phase_done("4b-5 B1 and B2 at the main path's shapes, fallback")
     # ---- 6. alignment: device traceback -------------------------------
     trace_results, lasagna = align_phases(
         card, dev, costs, graph, reads, scores, sg, s_reads)
 
-    def by_call(i):
-        return {"score_batch uniform": counts["uniform"][i],
-                "scores mixed max_retries=1": counts["mixed"][i],
-                "lasagna align uniform": lasagna["launches"][i]}
+    # ---- 7. ends-free and drifting-window scoring -------------------------
+    ef_results, ef_launches = ends_free_phases(card, dev, costs, graph, seqs)
+    results.update(ef_results)
 
+    def by_call(name):
+        """A fill kernel's launches in each main-path call that used it."""
+        i = {"B1": 0, "B2": 1}.get(name)
+        calls = {} if i is None else {
+            "score_batch uniform": counts["uniform"][i],
+            "scores mixed max_retries=1": counts["mixed"][i],
+            "lasagna align uniform": lasagna["launches"][i]}
+        calls.update({call: n[name] for call, n in ef_launches.items()})
+        return {call: n for call, n in calls.items() if n}
+
+    def fill_entry(name, kernel, source, replaces):
+        calls = by_call(name)
+        if not calls:
+            raise AssertionError(f"{name} launched on no main path")
+        return {"name": kernel, "route": "cuda",
+                "source": f"poasta_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": sum(calls.values()),
+                "launches_by_call": calls, **results[name]}
+
+    banded, full = "banded_kernel.cu", "fill_kernel.cu"
     kernels = [
-        {"name": "banded_fill_kernel", "route": "cuda",
-         "source": "poasta_tpu_torch/csrc/banded_kernel.cu",
-         "replaces": B1_REPLACES, "launches": b1_main,
-         "launches_by_call": by_call(0), **results["B1"]},
-        {"name": "full_fill_kernel", "route": "cuda",
-         "source": "poasta_tpu_torch/csrc/fill_kernel.cu",
-         "replaces": B2_REPLACES, "launches": b2_main,
-         "launches_by_call": by_call(1), "forced_fallback_launches": b2_fb,
-         **results["B2"]},
+        fill_entry("B1", "banded_kernel<global>", banded, B1_REPLACES),
+        {**fill_entry("B2", "full_fill_kernel<global>", full, B2_REPLACES),
+         "forced_fallback_launches": b2_fb},
+        fill_entry("B3", "banded_kernel<drift>", banded, B3_REPLACES),
+        fill_entry("B4", "full_fill_kernel<bounded>", full, B4_REPLACES),
+        fill_entry("B5", "banded_kernel<ends-free>", banded, B5_REPLACES),
+        fill_entry("B6", "banded_kernel<drift, ends-free>", banded,
+                   B6_REPLACES),
         {"name": "trace_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
          "replaces": B18_REPLACES, "launches": lasagna["launches"][2],
@@ -455,7 +633,7 @@ def _trace_pair(dg, inp, costs, Wb, verified, t_max):
 def write_inputs(graph, reads, directory):
     """The graph as GFA (``graph_to_gfa``) and the reads as FASTA (named
     ``r<i>``) in ``directory``; returns their paths."""
-    from poasta_tpu.io.gfa import graph_to_gfa
+    from poasta_tpu_torch.io.gfa import graph_to_gfa
 
     gfa = os.path.join(directory, "uniform.gfa")
     fa = os.path.join(directory, "reads.fa")
@@ -511,11 +689,10 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
               f"W {s_dg.window}, Wb {Wb}, plan "
               f"{tr.trace_plan(s_dg.window, Wb)}, {int(verified.sum())} "
               "verified", flush=True)
-        _compare(f"B18 small Wb {Wb}", fill_k, fill_p, card, reps=3,
-                 plain_reps=1)
-        _compare(f"decode small Wb {Wb}", dec_k, dec_p, card, reps=3,
-                 plain_reps=1)
+        _compare(f"B18 small Wb {Wb}", fill_k, fill_p, card, reps=3)
+        _compare(f"decode small Wb {Wb}", dec_k, dec_p, card, reps=3)
 
+    _phase_done("6a trace kernels at small shapes")
     # ---- 6b. main path: the port's lasagna CLI on the uniform config -----
     hybrid = BatchMapper(graph, costs, device=dev)
     for Wb in tr.TIER_WIDTHS:
@@ -600,6 +777,7 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
           f"{os.cpu_count()} cores): device trace {dev_s:.2f} s, host "
           f"{host_s:.2f} s wall  [{card}]", flush=True)
 
+    _phase_done("6b the CLI, both routes")
     # ---- 6c. the bench's hybrid config -----------------------------------
     sub = reads[:HYBRID_READS]
     hybrid.align_batch(sub)  # warm-up
@@ -634,12 +812,22 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
     fill_k, fill_p, dec_k, dec_p = _trace_pair(
         g_dg, inp, c, Wb, walk[-2].cpu().numpy(), walk[-1])
     results = {
-        "B18": _compare("B18 main path", fill_k, fill_p, card, reps=5,
-                        plain_reps=1),
-        "decode": _compare("decode main path", dec_k, dec_p, card, reps=5,
-                           plain_reps=1),
+        "B18": _compare("B18 main path", fill_k, fill_p, card, reps=5),
+        "decode": _compare("decode main path", dec_k, dec_p, card, reps=5),
     }
+    # B18 writes one pointer word per lane and rank and reads the per-read
+    # window starts beside the fill's tables
+    n_reads = int(inp["qpad"].shape[0])
+    results["B18"].update(fill_bound(
+        g_dg, n_reads, Wb, int(inp["qpad"].shape[1]),
+        g_dg.n_nodes * Wb + 1, tilted=True, per_pred=TRACE_PRED_OPS,
+        per_rank=TRACE_OPS, table_cols=n_reads))
+    # decode: one dependent chain per read; its steps are counted from this
+    # run's step words
+    steps = int((dec_k()[0] != 0).sum())
+    results["decode"].update(_bound(DECODE_BYTES * steps, DECODE_OPS * steps))
 
+    _phase_done("6c-6d hybrid, trace kernels at the main path's shapes")
     # ---- 6e. a graph past the JAX package's trace gate ---------------------
     from poasta_tpu_torch import POAGraph
 
@@ -668,7 +856,350 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
           f"{route_s['device']:.3f} s ({tr.trace_fill.launches - before} B18 "
           f"launches), native host backtrace {route_s['host']:.3f} s on "
           f"{os.cpu_count()} cores; alignments equal  [{card}]", flush=True)
+    _phase_done("6e 45k-rank graph")
     return results, {"launches": launches, "reads_per_s": len(reads) / dev_s}
+
+
+def _timed_batches(mapper, reads, n):
+    """One warm-up ``score_batch`` (it converges the ub hint), then ``n``
+    timed ones: (scores, median seconds, median cells filled)."""
+    import torch
+
+    scores = mapper.score_batch(reads)
+    ts, raws = [], []
+    for _ in range(n):
+        mapper.scorer.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = mapper.score_batch(reads)
+        ts.append(time.perf_counter() - t0)
+        raws.append(mapper.scorer.stats["cells_filled"])
+    return scores, statistics.median(ts), statistics.median(raws)
+
+
+def ends_free_phases(card, dev, costs, graph, seqs):
+    """Phases 7a-7d; returns (kernel comparisons of B3-B6, launches of the
+    six fill kernels per main-path call)."""
+    import torch
+
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        EndsFree,
+        NativeAligner,
+        PoastaAligner,
+        included,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import banded as banded_mod
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.ops import cuda_fill as cf
+
+    fills = {"B1": cf.banded_end_rows, "B2": cf.fill_end_rows,
+             "B3": cf.drift_end_rows, "B4": cf.bounded_best_rows,
+             "B5": cf.ef_best_rows, "B6": cf.drift_ef_best_rows}
+    launches = {}
+
+    # the widest batch a main-path call gives each new kernel (the last
+    # such call, so a learned ub's layout rather than the warm-up's) is kept
+    # for 7d, not the checking calls'; the launch counters are untouched
+    captured, on_main_path = {}, [False]
+
+    def keep(name, fn, q_at):
+        def rec(*args, **kwargs):
+            B = int(args[q_at].shape[0])
+            if on_main_path[0] and B >= captured.get(name, (0,))[0]:
+                captured[name] = (B, args, kwargs)
+            return fn(*args, **kwargs)
+        return rec
+
+    def zero():
+        for k in fills.values():
+            k.launches = 0
+        on_main_path[0] = True
+
+    def read(call):
+        on_main_path[0] = False
+        launches[call] = {name: k.launches for name, k in fills.items()}
+        return launches[call]
+
+    recorders = [
+        mock.patch.object(banded_mod, "drift_scores",
+                          keep("B3", cf.drift_scores, 1)),
+        mock.patch.object(banded_mod, "drift_ef_scores",
+                          keep("B6", cf.drift_ef_scores, 1)),
+        mock.patch.object(banded_mod, "ef_scores",
+                          keep("B5", cf.ef_scores, 1)),
+        mock.patch.object(wavefront_mod, "bounded_scores",
+                          keep("B4", cf.bounded_scores, 1)),
+    ]
+    plain_fills = [
+        mock.patch.object(banded_mod, "banded_scores", cf.banded_scores_plain),
+        mock.patch.object(banded_mod, "drift_scores", cf.drift_scores_plain),
+        mock.patch.object(banded_mod, "drift_ef_scores",
+                          cf.drift_ef_scores_plain),
+        mock.patch.object(banded_mod, "ef_scores", cf.ef_scores_plain),
+        mock.patch.object(wavefront_mod, "fill_scores", cf.fill_scores_plain),
+        mock.patch.object(wavefront_mod, "bounded_scores",
+                          cf.bounded_scores_plain),
+    ]
+
+    def plain_path(fn):
+        """``fn()`` with every fill replaced by its plain version; fails if
+        a kernel launches all the same."""
+        before = [k.launches for k in fills.values()]
+        with ExitStack() as stack:
+            for patch in plain_fills:
+                stack.enter_context(patch)
+            t0 = time.perf_counter()
+            out = fn()
+            secs = time.perf_counter() - t0
+        if [k.launches for k in fills.values()] != before:
+            raise AssertionError("the plain path launched a kernel")
+        return out, secs
+
+    def no_drift(mapper):
+        mapper.scorer.DRIFT_MIN_SPREAD = 1 << 30
+        return mapper
+
+    def drift_layouts(scorer):
+        return sorted((k[3], v[0]) for k, v in scorer._prep_cache.items()
+                      if k[0] == "drift" and v[0] is not None)
+
+    with ExitStack() as stack:
+        for patch in recorders:
+            stack.enter_context(patch)
+
+        # ---- 7a. drifting windows, global span ----------------------------
+        gsv, sv_reads = sv_workload(costs)
+        lens = [len(r) for r in sv_reads]
+        m_drift = BatchMapper(gsv, costs, device=dev)
+        print(f"[drift] SV graph: {m_drift.flat.n_nodes} nodes, W "
+              f"{m_drift.dg.window}; {N_READS} reads of {min(lens)}-"
+              f"{max(lens)}", flush=True)
+        zero()
+        sv_scores, el, raw = _timed_batches(m_drift, sv_reads, 3)
+        n7a = read("score_batch mixed_len")
+        sh_scores, el_sh, raw_sh = _timed_batches(
+            no_drift(BatchMapper(gsv, costs, device=dev)), sv_reads, 3)
+        print(f"[drift] mixed_len score_batch: {N_READS / el:.2f} reads/s "
+              f"(median {el * 1e3:.1f} ms), drift off {N_READS / el_sh:.2f} "
+              f"reads/s ({el_sh * 1e3:.1f} ms); cells ratio "
+              f"{raw_sh / max(raw, 1):.2f} (shared {raw_sh:.4e} / drift "
+              f"{raw:.4e}); drift layouts (ub, Wb) "
+              f"{drift_layouts(m_drift.scorer)}, ub hint "
+              f"{m_drift.scorer._ub_hint}; launches {n7a}  [{card}]",
+              flush=True)
+        if n7a["B3"] <= 0:
+            raise AssertionError(f"7a never launched the drift kernel: {n7a}")
+        plain_sv, secs = plain_path(
+            lambda: BatchMapper(gsv, costs, device=dev).score_batch(sv_reads))
+        na = NativeAligner(gsv)
+        sample = [0, 1, 2, 3, N_READS // 2, N_READS // 2 + 1, N_READS - 2,
+                  N_READS - 1]
+        native = [na.align_banded(sv_reads[i], costs)[0] for i in sample]
+        if not ((sv_scores == sh_scores).all()
+                and (sv_scores == plain_sv).all()
+                and [int(sv_scores[i]) for i in sample] == native):
+            raise AssertionError("7a: drift scores differ from the shared "
+                                 "windows', the plain path's or the native "
+                                 "engine's")
+        print(f"[drift] all {N_READS} scores equal with drift off and on the "
+              f"plain path ({secs:.1f} s, one cold call); reads {sample} "
+              "equal NativeAligner.align_banded", flush=True)
+
+        _phase_done("7a mixed_len")
+        # ---- 7b. drifting windows x the bench's bounded span ---------------
+        bench_span = EndsFree(UNBOUNDED, included(50), included(0),
+                              included(50))
+        m_ef = BatchMapper(gsv, costs, device=dev, aln_type=bench_span)
+        zero()
+        ef_scores, el, raw = _timed_batches(m_ef, sv_reads, 3)
+        n7b = read("score_batch mixed_len bounded span")
+        efs_scores, el_sh, raw_sh = _timed_batches(
+            no_drift(BatchMapper(gsv, costs, device=dev,
+                                 aln_type=bench_span)), sv_reads, 3)
+        print(f"[drift-ef] bounded span score_batch: {N_READS / el:.2f} "
+              f"reads/s (median {el * 1e3:.1f} ms), drift off "
+              f"{N_READS / el_sh:.2f} reads/s ({el_sh * 1e3:.1f} ms); cells "
+              f"ratio {raw_sh / max(raw, 1):.2f}; drift layouts (ub, Wb) "
+              f"{drift_layouts(m_ef.scorer)}; launches {n7b}  [{card}]",
+              flush=True)
+        if n7b["B6"] <= 0:
+            raise AssertionError(f"7b never launched the drift x ends-free "
+                                 f"kernel: {n7b}")
+        q_sv, l_sv = pack_queries(sv_reads, device=dev)
+        exact = wavefront_mod.dp_fill_scores_ends_free(
+            m_ef.dg, m_ef.flat, q_sv, l_sv, costs, bench_span).cpu().numpy()
+        if not ((ef_scores == efs_scores).all()
+                and (ef_scores == exact).all()):
+            raise AssertionError("7b: drift x ends-free scores differ from "
+                                 "the shared windows' or the exact full "
+                                 "fill's")
+        # an engine that shares nothing with the fills: the exact A* engine
+        # under Dijkstra (see 7c) on the tails of one read from each allele,
+        # short because it walks most of the graph per query base
+        tails = [sv_reads[0][-48:], sv_reads[1][-64:]]
+        engine = PoastaAligner(costs, bench_span, heuristic="dijkstra")
+        t0 = time.perf_counter()
+        want = [engine.align(gsv, r).score for r in tails]
+        if list(map(int, m_ef.score_batch(tails))) != want:
+            raise AssertionError("7b: short reads differ from the exact "
+                                 "engine's under the bounded span")
+        print(f"[drift-ef] all {N_READS} scores equal with drift off and the "
+              f"exact bounded full fill's; the last 48 and 64 bases of reads "
+              f"0 and 1 equal the exact A* engine's {want} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        _phase_done("7b mixed_len bounded span")
+        # ---- 7c. semi-global fragments on the uniform graph ------------------
+        # With a free graph begin and lengths spread over 2 kb the window is
+        # as wide as the row, so the whole batch verifies in one exact
+        # full-width tier of B5.  Sorted by length into quarters, as the
+        # CLI batches its reads, the long quarters' band is narrower than
+        # the row, and with one attempt the reads their first tier does not
+        # verify reach the capped ladder over the bounded full fill (B4).
+        semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+        frags = fragment_reads(seqs, N_READS, 2000, 4000)
+        lens = [len(r) for r in frags]
+        m_sg = BatchMapper(graph, costs, device=dev, aln_type=semi)
+        zero()
+        sg_scores, el, raw = _timed_batches(m_sg, frags, 3)
+        n7c1 = read("score_batch fragments")
+        order = sorted(range(N_READS), key=lambda i: len(frags[i]))
+        quarters = [order[k:k + N_READS // 4]
+                    for k in range(0, N_READS, N_READS // 4)]
+        packed = [pack_queries([frags[i] for i in idx], device=dev)
+                  for idx in quarters]
+        m_q = BatchMapper(graph, costs, device=dev, aln_type=semi)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tail_scores = [m_q.scorer.scores(q, ln, max_retries=1)
+                       for q, ln in packed]
+        tail_s = time.perf_counter() - t0
+        n7c2 = read("scores length-sorted quarters max_retries=1")
+        print(f"[semi-global] {N_READS} fragments of {min(lens)}-{max(lens)}:"
+              f" score_batch {N_READS / el:.2f} reads/s (median "
+              f"{el * 1e3:.1f} ms, {raw / el:.4e} raw cells/s), launches "
+              f"{n7c1}; four length-sorted quarters through scores("
+              f"max_retries=1) {tail_s * 1e3:.1f} ms cold, stats "
+              f"{m_q.scorer.stats}, launches {n7c2}, ub hints "
+              f"{m_q.scorer._ub_hint}  [{card}]", flush=True)
+        if n7c1["B5"] <= 0 or n7c2["B5"] <= 0 or n7c2["B4"] <= 0:
+            raise AssertionError(f"7c: the ends-free banded fill or the "
+                                 f"bounded full fill never launched: {n7c1} "
+                                 f"{n7c2}")
+        q_f, l_f = pack_queries(frags, device=dev)
+        exact = wavefront_mod.dp_fill_scores_ends_free(
+            m_sg.dg, m_sg.flat, q_f, l_f, costs, semi).cpu().numpy()
+        plain_q = BatchMapper(graph, costs, device=dev, aln_type=semi)
+        plain_sg, secs = plain_path(
+            lambda: [plain_q.scorer.scores(q, ln, max_retries=1)
+                     for q, ln in packed])
+        for idx, got, ref in zip(quarters, tail_scores, plain_sg):
+            if not ((got == ref).all() and (got == sg_scores[idx]).all()):
+                raise AssertionError("7c: a quarter's scores differ from the "
+                                     "plain path's or from score_batch's")
+        if not ((sg_scores == exact).all() and (sg_scores < cf.INF).all()):
+            raise AssertionError("7c: semi-global scores differ from the "
+                                 "exact full fill's")
+        # the exact A* engine needs the Dijkstra heuristic here (mingap is
+        # not admissible when ends are free) and then takes minutes on a
+        # 3 kb fragment, so it checks short fragments through the same mapper
+        short = fragment_reads(seqs, 2, 100, 120)
+        engine = PoastaAligner(costs, semi, heuristic="dijkstra")
+        t0 = time.perf_counter()
+        want = [engine.align(graph, r).score for r in short]
+        if list(map(int, m_sg.score_batch(short))) != want:
+            raise AssertionError("7c: short fragments differ from the exact "
+                                 "engine's")
+        print(f"[semi-global] all {N_READS} scores equal the exact bounded "
+              f"full fill's and the plain path's ({secs:.1f} s, one cold "
+              f"call); 2 fragments of 100-120 bases equal the exact A* "
+              f"engine's {want} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+    _phase_done("7c semi-global fragments")
+    # ---- 7d. B3-B6 against their plain versions at the main paths' shapes ----
+    results = {}
+    _, (dg, qpad, ln, c, prep, n_min), kw = captured["B3"]
+    nbs = cf.drift_units(ln, n_min)
+    mr = kw.get("max_run", 0)
+    plan = cf.variant_plan(cf.VARIANT_DRIFT, dg.window, prep["width"],
+                           prep["margin"], int(qpad.shape[1]))
+    print(f"[kernels] B3 main path: {int(qpad.shape[0])} reads, Lq "
+          f"{int(qpad.shape[1])} (mq {prep['mq']}), Wb {prep['width']}, margin"
+          f" {prep['margin']}, S {prep['S']}, max_run {mr}, plan {plan}",
+          flush=True)
+    results["B3"] = _compare(
+        "B3 main path", lambda: cf.drift_end_rows(dg, qpad, nbs, c, prep, mr),
+        lambda: cf.drift_end_rows_plain(dg, qpad, nbs, c, prep, mr), card,
+        reps=3)
+    P = int(dg.pred_slots.shape[1])
+    results["B3"].update(fill_bound(
+        dg, int(qpad.shape[0]), prep["width"], int(qpad.shape[1]) + 1,
+        prep["width"], tilted=True, table_cols=3 + P))
+
+    _, (dg, qpad, ln, c, prep, n_min, end_ok, jlo), kw = captured["B6"]
+    li, jl = ln.to(torch.int32).contiguous(), jlo.to(torch.int32).contiguous()
+    nbs = cf.drift_units(li, n_min)
+    mr = kw.get("max_run", 0)
+    plan = cf.variant_plan(cf.VARIANT_DRIFT_EF, dg.window, prep["width"],
+                           prep["margin"], int(qpad.shape[1]))
+    print(f"[kernels] B6 main path: {int(qpad.shape[0])} reads, Lq "
+          f"{int(qpad.shape[1])} (mq {prep['mq']}), Wb {prep['width']}, margin"
+          f" {prep['margin']}, S {prep['S']}, max_run {mr}, "
+          f"{int(end_ok.sum())} permitted ranks, plan {plan}", flush=True)
+    results["B6"] = _compare(
+        "B6 main path",
+        lambda: cf.drift_ef_best_rows(dg, qpad, nbs, li, jl, c, prep, end_ok,
+                                      mr),
+        lambda: cf.drift_ef_best_rows_plain(dg, qpad, nbs, li, jl, c, prep,
+                                            end_ok, mr), card, reps=3)
+    # + the end test at permitted ranks: two compares, the un-tilt, a min
+    results["B6"].update(fill_bound(
+        dg, int(qpad.shape[0]), prep["width"], int(qpad.shape[1]) + 3,
+        prep["width"], tilted=True,
+        per_rank=RECURRENCE_OPS + 5 * int(end_ok.sum()) / dg.n_nodes,
+        table_cols=4 + P))
+
+    _, (dg, q, ln, c, prep, fs, end_ok, jlo), kw = captured["B5"]
+    mr = kw.get("max_run", 0)
+    plan = cf.variant_plan(cf.VARIANT_EF, dg.window, prep["width"],
+                           prep["margin"], int(q.shape[1]))
+    print(f"[kernels] B5 main path: {int(q.shape[0])} reads, Lq "
+          f"{int(q.shape[1])}, Wb {prep['width']}, margin {prep['margin']}, "
+          f"free_start {fs}, max_run {mr}, plan {plan}", flush=True)
+    results["B5"] = _compare(
+        "B5 main path",
+        lambda: cf.ef_best_rows(dg, q, c, prep, fs, end_ok, mr),
+        lambda: cf.ef_best_rows_plain(dg, q, c, prep, fs, end_ok, mr), card,
+        reps=3)
+    P = int(dg.pred_slots.shape[1])
+    results["B5"].update(fill_bound(
+        dg, int(q.shape[0]), prep["width"], int(q.shape[1]),
+        int(q.shape[1]), tilted=True,
+        per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
+        table_cols=2 + P))
+
+    _, (dg, q, ln, c, fs, end_ok, jlo), kw = captured["B4"]
+    mr = kw.get("max_run", 0)
+    L = int(q.shape[1])
+    print(f"[kernels] B4 main path (the fragments' tail): {int(q.shape[0])} "
+          f"reads, L {L}, free_start {fs}, max_run {mr}, plan "
+          f"{cf.bounded_plan(dg.window, L)}", flush=True)
+    results["B4"] = _compare(
+        "B4 main path",
+        lambda: cf.bounded_best_rows(dg, q, c, fs, end_ok, mr),
+        lambda: cf.bounded_best_rows_plain(dg, q, c, fs, end_ok, mr), card,
+        reps=3)
+    results["B4"].update(fill_bound(
+        dg, int(q.shape[0]), L, L, L, tilted=False,
+        per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
+        table_cols=1))
+    _phase_done("7d B3-B6 at the main paths' shapes")
+    return results, launches
 
 
 def _align_routes(mapper, reads, token):

@@ -1,6 +1,7 @@
 """Dense wavefront fill: the static device graph, read packing, the
-full-fill scores, and the dense tables + host backtrace of small batches.
-Port of the global one-piece part of ``poasta_tpu/aligner/wavefront.py``.
+full-fill scores (global and ends-free spans), and the dense tables + host
+backtrace of small batches.  Port of the one-piece, single-device part of
+``poasta_tpu/aligner/wavefront.py``.
 
 Ranks are the sequential axis, query offsets the lanes and reads the
 batch; rows live in a ring of ``W`` liveness-coloured slots, so the
@@ -15,11 +16,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from poasta_tpu.aligner.alignment import AlignedPair, Alignment
-from poasta_tpu.graphs.flat import FlatGraph
-
-from ..ops.cuda_fill import fill_scores
+from ..graphs.flat import FlatGraph
+from ..ops.cuda_fill import bounded_scores, fill_scores
 from ..ops.dp_rows import INF, row_update
+from ..utils.device import resolve_device
+from .alignment import AlignedPair, Alignment
+from .costs import EndsFree
 
 # rank rows are padded to a multiple of this, as in the reference's
 # default layout; the kernels loop over the true rank count only
@@ -163,7 +165,10 @@ class DeviceGraph:
         )
 
     @staticmethod
-    def build(flat: FlatGraph, device="cpu") -> "DeviceGraph":
+    def build(flat: FlatGraph, device=None) -> "DeviceGraph":
+        """Lay ``flat`` out on ``device`` (None: the card; raises without
+        one)."""
+        device = resolve_device(device)
         n = flat.n_nodes
         P = _next_pow2(max(1, flat.max_in_degree))
         np_nodes = _round_up(n, NODE_BUCKET)
@@ -195,14 +200,15 @@ class DeviceGraph:
                                        device)
 
 
-def pack_queries(queries, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+def pack_queries(queries, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack byte-string reads into a padded (B, L) int32 batch + (B,)
-    lengths on ``device``.
+    lengths on ``device`` (None: the card; raises without one).
 
     Column ``j`` holds ``q[j-1]`` (offset j consumes query char j-1);
     column 0 and the padding are 0, which matches no nucleotide symbol.
     ``L`` is rounded up to a multiple of 128.
     """
+    device = resolve_device(device)
     maxlen = max((len(q) for q in queries), default=0)
     L = _round_up(maxlen + 1, 128)
     arr = np.zeros((len(queries), L), dtype=np.int32)
@@ -382,3 +388,74 @@ def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
     if getattr(costs, "is_two_piece", False):
         raise NotImplementedError("two-piece costs are not ported yet")
     return fill_scores(dg, qshift, lengths, costs)
+
+
+def query_end_lo(aln_type: EndsFree, lengths_np: np.ndarray) -> np.ndarray:
+    """(B,) lowest query offset at which a read may end under
+    ``aln_type.qry_free_end``: the permitted end offsets are [jlo, n]
+    (empty when the bound cannot be met).  The unbounded case keeps the
+    exact engine's offset > 0 rule (an empty read ends at 0).  The one
+    place this bound is lowered; host and device users share it."""
+    li = np.asarray(lengths_np).astype(np.int64)
+    kind, val = aln_type.qry_free_end
+    if kind == "unbounded":
+        jlo = np.minimum(li, 1)
+    elif kind == "included":
+        jlo = np.maximum(li - val, 0)
+    else:
+        jlo = np.maximum(li - val + 1, 0)
+    return jlo.astype(np.int32)
+
+
+def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
+                            lengths: torch.Tensor, n_nodes_padded: int):
+    """Lower an ``EndsFree`` span to what the bounded fills take:
+    ``(free_start, end_ok, jlo)`` on ``lengths``' device.
+
+    * ``free_start``: graph_free_begin is unbounded (a bounded free begin
+      degenerates to the start node, as in the exact engine).
+    * ``end_ok``: (Np,) int32, rank may end the alignment by the
+      graph_free_end bound on its min distance to the end node.  No rank is
+      excluded by kind: the virtual end rank (distance 0) passes every
+      bound but excluded(0).
+    * ``jlo``: (B,) int32, :func:`query_end_lo`.
+    ``qry_free_begin`` is parsed and ignored, as in the exact engine.
+    """
+    if not isinstance(aln_type, EndsFree):
+        raise TypeError(f"expected an EndsFree span, got {aln_type!r}")
+    n = flat.n_nodes
+    de = flat.min_dist_to_end.astype(np.int64)
+    kind, val = aln_type.graph_free_end
+    if kind == "unbounded":
+        ok = np.ones(n, dtype=np.int32)
+    elif kind == "included":
+        ok = (de <= val).astype(np.int32)
+    else:
+        ok = (de < val).astype(np.int32)
+    end_ok = np.zeros(n_nodes_padded, dtype=np.int32)
+    end_ok[:n] = ok
+    jlo = query_end_lo(aln_type, lengths.cpu().numpy())
+    dev = lengths.device
+    return (aln_type.graph_free_begin[0] == "unbounded",
+            torch.as_tensor(end_ok, device=dev),
+            torch.as_tensor(jlo, device=dev))
+
+
+def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
+                             qshift: torch.Tensor, lengths: torch.Tensor,
+                             costs, aln_type: EndsFree,
+                             max_run: int = 0) -> torch.Tensor:
+    """(B,) optimal ends-free scores by the full-width bounded fill, with
+    included/excluded/unbounded bounds on the graph and query free ends.
+    ``max_run`` caps the insertion scan (scores are then upper bounds; see
+    ``aligner.banded.run_capped_ladder``).
+
+    On a CUDA tensor the bounded fill kernel runs (or raises); on a CPU
+    tensor its plain PyTorch version does.
+    """
+    if getattr(costs, "is_two_piece", False):
+        raise NotImplementedError("two-piece costs are not ported yet")
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, aln_type, lengths, dg.n_nodes_padded)
+    return bounded_scores(dg, qshift, lengths, costs, free_start, end_ok, jlo,
+                          max_run=max_run)

@@ -3,9 +3,10 @@
     python -m poasta_tpu_torch.cli.lasagna align graph.gfa reads.fa -o out.gaf
 
 Flag-compatible with ``poasta_tpu.cli.lasagna`` and byte-equal in its
-output.  The wavefront engine batches reads (``-j`` sets the batch size)
-onto one CUDA card when PyTorch sees one, else runs the same path with
-the kernels' plain PyTorch versions on the CPU.  ``--engine exact`` runs
+output, with one flag of its own: ``--device {cuda,cpu}``.  The wavefront
+engine batches reads (``-j`` sets the batch size) onto one CUDA card and
+exits with an error when PyTorch sees none; ``--device cpu`` runs the same
+path with the kernels' plain PyTorch versions.  ``--engine exact`` runs
 the host A* engine per read.
 
 Ported: the global span, ``--engine wavefront|exact`` and the host-only
@@ -18,6 +19,9 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+from ..utils.device import NoDeviceError
+from ..utils.errors import PoastaError
 
 NOT_PORTED = "not ported yet"
 
@@ -34,17 +38,17 @@ def unported_option(args):
 
 
 def align_subcommand(args):
-    from poasta_tpu.aligner import GapAffine, Global, PoastaAligner
-    from poasta_tpu.bubbles import BubbleIndex
-    from poasta_tpu.io import (
+    from ..aligner import GapAffine, Global, PoastaAligner
+    from ..bubbles import BubbleIndex
+    from ..io import (
         NodeSegmentResolver,
         alignment_to_gaf,
         load_graph_from_gfa,
         read_fasta,
         read_fastq,
     )
-
     from ..parallel.mapper import BatchMapper
+    from ..utils.device import resolve_device
 
     graph, segments = load_graph_from_gfa(
         args.graph, reverse_links=args.reverse_links)
@@ -53,6 +57,10 @@ def align_subcommand(args):
     resolver = NodeSegmentResolver(graph, segments)
     costs = GapAffine(args.cost_mismatch, args.cost_gap_extend,
                       args.cost_gap_open)
+    # decided before any file is opened: a missing card raises unless the
+    # caller named the CPU (the exact engine runs on the host)
+    device = None if args.engine == "exact" else resolve_device(
+        None if args.device == "cuda" else "cpu")
 
     path = str(args.sequences)
     base = path[:-3] if path.endswith(".gz") else path
@@ -97,10 +105,6 @@ def align_subcommand(args):
                                                           bubble_index)
                 emit_record(name, seq, res.score, res.alignment)
             return
-        import torch
-
-        device = (torch.device("cuda", 0) if torch.cuda.is_available()
-                  else torch.device("cpu"))
         batch_size = args.batch_size
         if args.verbose:
             print(f"INFO: device {device}, batch size {batch_size}",
@@ -205,6 +209,11 @@ def build_parser():
                    help="GFA links touching the reverse strand: 'reject' "
                         "errors like the reference; 'double' (extension) "
                         "adds reverse-complement segment copies")
+    a.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the wavefront engine runs: 'cuda' (default) "
+                        "is the first card, an error when PyTorch sees "
+                        "none; 'cpu' runs the kernels' plain PyTorch "
+                        "versions (the one flag the reference CLI lacks)")
     a.add_argument("--mesh", default="auto", metavar="auto|off|1",
                    help="one card only: auto, off and 1 all run "
                         "single-device")
@@ -235,16 +244,9 @@ def main(argv=None):
         return 1
     try:
         align_subcommand(args)
-    except (OSError, ValueError) as exc:
+    except (OSError, ValueError, PoastaError, NoDeviceError) as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 1
-    except Exception as exc:
-        from poasta_tpu.utils.errors import PoastaError
-
-        if isinstance(exc, PoastaError):
-            print(f"Error: {exc}", file=sys.stderr)
-            return 1
-        raise
     return 0
 
 

@@ -2,7 +2,8 @@
 // of a read's working set (scratch rows + ring buffers).
 //
 // One thread block fills one read.  Its working set is its scratch rows
-// (five of `row_lanes` int32 lanes for the fills) plus the M and D rings.
+// (five of `row_lanes` int32 lanes for the fills, and the best row of an
+// ends-free fill) plus the M and D rings.
 // Where the whole set fits in the block's opt-in shared memory (227 KB on
 // an H100) it lives there; otherwise the rings move to a global-memory
 // slab owned by the block, and past that the rows follow.  The kernels

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..utils import build
-from .cuda_fill import PLACEMENTS, _check_operand, _prefix_min
+from ..utils.device import resolve_device
+from .cuda_fill import PLACEMENTS, _check_operands, _prefix_min
 from .dp_rows import INF
 
 # pointer-word layout (int32), as poasta_tpu/ops/pallas_trace.py:67-73:
@@ -102,7 +103,7 @@ def _schedule_body(dmin, dmax, lengths, k, aj, a_dmin, a_dmax, n_real: int,
 
 
 def build_trace_schedule(flat, lengths_np, k_np, Wb: int, Np: int,
-                         device="cpu"):
+                         device=None):
     """Per-read monotone 128-quantized window-start schedule for global
     anchors (the virtual end rank at j = the read's length).
 
@@ -110,10 +111,11 @@ def build_trace_schedule(flat, lengths_np, k_np, Wb: int, Np: int,
     change by <= 1 / >= 1 per edge), the consumed offset j satisfies
       n - (dmax[end] - dmax[r]) - K <= j <= n - (dmin[end] - dmin[r]) + K
     with K = the gap budget ``k_np``.  Returns steps (B, Np) bool on
-    ``device`` (the window steps 128 lanes at that rank) and host ok (B,)
-    bool: False where width ``Wb`` provably cannot cover the read's
-    bounds.
+    ``device`` (None: the card) (the window steps 128 lanes at that rank)
+    and host ok (B,) bool: False where width ``Wb`` provably cannot cover
+    the read's bounds.
     """
+    device = resolve_device(device)
     n = flat.n_nodes
     B = lengths_np.shape[0]
     dmin_d, dmax_d = _sched_potentials(flat, Np, device)
@@ -276,8 +278,7 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb):
                 "pred_slots": dg.pred_slots_flat,
                 "pred_valid": dg.pred_valid_flat,
                 "write_slots": dg.write_slots}
-    for name, t in operands.items():
-        _check_operand(t, dev, name)
+    _check_operands(dev, **operands)
     if tuple(wstarts.shape) != (B, Np):
         raise ValueError(f"wstarts {tuple(wstarts.shape)} != {(B, Np)}")
     if Wb % 128 or Wb > 4096 or LQ < Wb + 128:
@@ -393,8 +394,7 @@ def _launch_decode(ptr, pred_ranks, wstarts, anchor_r, anchor_j, end_rank,
     act = active.to(torch.int32).contiguous()
     operands = {"ptr": ptr, "pred_ranks": pred_ranks, "wstarts": wstarts,
                 "anchor_r": anchor_r, "anchor_j": anchor_j, "active": act}
-    for name, t in operands.items():
-        _check_operand(t, dev, name)
+    _check_operands(dev, **operands)
     if pred_ranks.shape[0] % Np or tuple(wstarts.shape) != (B, Np):
         raise ValueError("decode operands disagree on the rank count")
     ops = torch.zeros((B, t_max), dtype=torch.int32, device=dev)
@@ -534,7 +534,7 @@ def trace_align(dg, flat, qshift, lengths, costs, scores):
     buffers take at most half of :func:`free_bytes`.  A read whose buffers
     alone pass that stops the tiers (it stays None).
     """
-    from poasta_tpu.aligner.alignment import ArrayAlignment
+    from ..aligner.alignment import ArrayAlignment
 
     B = int(qshift.shape[0])
     if int(dg.pred_slots.shape[1]) > PMAX:

@@ -1,5 +1,6 @@
-"""Batch read mapping against a static graph: port of the global,
-single-device part of ``poasta_tpu/parallel/mapper.py``."""
+"""Batch read mapping against a static graph: port of the single-device
+part of ``poasta_tpu/parallel/mapper.py`` (scoring of global and ends-free
+spans, alignment of global spans)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from poasta_tpu.aligner.costs import Global
-
 from ..aligner.banded import BandedScorer
+from ..aligner.costs import EndsFree, Global
 from ..aligner.wavefront import (
     DeviceGraph,
     backtrace_dense,
@@ -24,9 +24,11 @@ class BatchMapper:
     """lasagna's batch read mapper: scores and aligns batches of reads
     against one static POA graph, deterministically.
 
-    The graph is flattened and placed on ``device`` once.  Scores come
-    from the banded scorer (exact by verify-and-retry, the full-width fill
-    as its last resort).  Alignments come from dense tables and a host
+    The graph is flattened and placed on ``device`` once (None: the card;
+    raises without one).  Scores come from the banded scorer (exact by
+    verify-and-retry, the full-width fill as its last resort), under
+    ``aln_type``: None or Global, or an ``EndsFree`` span.  Alignments, of
+    global spans only so far, come from dense tables and a host
     backtrace for small batches, and otherwise from the device traceback,
     with the native engine's banded backtrace for the reads the trace
     leaves unverified.
@@ -36,25 +38,28 @@ class BatchMapper:
     # the banded route (the reference's rule, so both packages route alike)
     DENSE_TABLE_BUDGET = 64 * 1024 * 1024
 
-    def __init__(self, graph, costs, device="cpu", batch_size: int = 64,
+    def __init__(self, graph, costs, device=None, batch_size: int = 64,
                  aln_type=None):
         if getattr(costs, "is_two_piece", False):
             raise NotImplementedError("two-piece costs are not ported yet")
-        if aln_type is not None and not isinstance(aln_type, Global):
-            raise NotImplementedError(
-                "ends-free alignment spans are not ported yet")
+        if aln_type is not None \
+                and not isinstance(aln_type, (Global, EndsFree)):
+            raise TypeError(f"unknown alignment span {aln_type!r}")
         self.graph = graph
         self.flat = graph.flatten()
         self.dg = DeviceGraph.build(self.flat, device=device)
         self.costs = costs
         self.batch_size = batch_size
         self.aln_type = aln_type
-        self.scorer = BandedScorer(self.flat, costs, dg=self.dg)
+        self.ends_free = isinstance(aln_type, EndsFree)
+        self.scorer = BandedScorer(self.flat, costs, dg=self.dg,
+                                   aln_type=aln_type)
         self._native = None
         self.last_banded_stats = {"device_traced": 0, "host_backtraced": 0}
 
     def score_batch(self, queries) -> np.ndarray:
-        """(B,) exact global alignment scores of byte-string reads."""
+        """(B,) exact alignment scores of byte-string reads under the
+        mapper's span."""
         qshift, lengths = pack_queries(queries, device=self.dg.device)
         return self.scorer.scores(qshift, lengths)
 
@@ -69,6 +74,10 @@ class BatchMapper:
         scores, then the device traceback (see :meth:`_align_batch_banded`).
         ``prescored`` is :meth:`prescore`'s token for this batch.
         """
+        if self.ends_free:
+            raise NotImplementedError(
+                "aligning an ends-free span is not ported yet "
+                "(score_batch scores it)")
         if not queries:
             return []
         pre_scores = None
@@ -94,7 +103,7 @@ class BatchMapper:
         """Construct the native engine once.  A missing native library
         raises: the banded route has no other host backtrace."""
         if self._native is None:
-            from poasta_tpu.native import NativeAligner
+            from ..native import NativeAligner
 
             self._native = NativeAligner(self.graph)
 

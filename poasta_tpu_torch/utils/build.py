@@ -26,8 +26,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "poasta_tpu_torch")
+# --threads 0: nvcc runs its compile steps in parallel, one thread a core
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--threads", "0"]
 LIB_NAME = "libpoasta_cuda.so"
 # the first load can come from two threads at once (the serving loop scores
 # the next batch on a worker thread while the main thread traces)
@@ -99,14 +101,14 @@ def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["lib"])
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pi, pll = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
-    lib.poasta_banded_plan.argtypes = [i, i, i, pi, pi, pi, pll]
+    lib.poasta_banded_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pll]
     lib.poasta_banded_plan.restype = i
     lib.poasta_banded_fill.argtypes = (
-        [p] * 7 + [i] * 12 + [p, p, ll, p])
+        [i] + [p] * 13 + [i] * 15 + [p, p, ll, p])
     lib.poasta_banded_fill.restype = i
-    lib.poasta_fill_plan.argtypes = [i, i, pi, pi, pi, pll]
+    lib.poasta_fill_plan.argtypes = [i, i, i, pi, pi, pi, pll]
     lib.poasta_fill_plan.restype = i
-    lib.poasta_full_fill.argtypes = [p] * 5 + [i] * 9 + [p, p, ll, p]
+    lib.poasta_full_fill.argtypes = [i] + [p] * 6 + [i] * 11 + [p, p, ll, p]
     lib.poasta_full_fill.restype = i
     lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll]
     lib.poasta_trace_plan.restype = i

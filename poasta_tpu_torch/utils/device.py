@@ -11,11 +11,22 @@ import subprocess
 import torch
 
 
+class NoDeviceError(RuntimeError):
+    """PyTorch sees no CUDA card."""
+
+
 def cuda_device() -> torch.device:
     """The first CUDA device; raises when PyTorch sees no card."""
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
+        raise NoDeviceError(
+            "no CUDA device: torch.cuda.is_available() is False")
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card, and raises
+    without one.  A caller that wants the CPU names it."""
+    return cuda_device() if device is None else torch.device(device)
 
 
 def card_info() -> str:

@@ -13,10 +13,24 @@ import numpy as np
 import pytest
 import torch
 
-from poasta_tpu_torch import BatchMapper, GapAffine, NativeAligner, POAGraph
-from poasta_tpu_torch import pack_queries
+from poasta_tpu_torch import (
+    UNBOUNDED,
+    BandedScorer,
+    BatchMapper,
+    EndsFree,
+    GapAffine,
+    NativeAligner,
+    POAGraph,
+    PoastaAligner,
+    included,
+    pack_queries,
+)
 from poasta_tpu_torch.aligner import banded as tbd
-from poasta_tpu_torch.aligner.wavefront import DeviceGraph
+from poasta_tpu_torch.aligner.wavefront import (
+    DeviceGraph,
+    dp_fill_scores_ends_free,
+    ends_free_device_params,
+)
 from poasta_tpu_torch.ops import cuda_fill as cf
 from poasta_tpu_torch.ops import trace as tr
 
@@ -231,3 +245,178 @@ def test_trace_serves_graph_past_reference_gate(card, monkeypatch):
         ns, naln = na.align_banded(r, COSTS, ub=score)
         assert ns == score
         assert list(aln) == list(naln)
+
+
+# ---- ends-free and drifting-window fills (B3, B4, B5, B6) --------------------
+
+SEMI_GLOBAL = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+BOUNDED = EndsFree(UNBOUNDED, included(40), included(0), included(40))
+
+
+def _sv_case(seed, glen=1000, n_reads=64):
+    """A graph with a deletion allele spanning most of it and reads from
+    both alleles: lengths spread past the drift threshold."""
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(glen))
+    variant = base[:80] + base[glen - 80:]
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * glen)
+    _, aln, _ = NativeAligner(g).align(variant.encode(), COSTS)
+    g.add_alignment_with_weights("s1", variant.encode(), aln,
+                                 [1] * len(variant))
+    reads = [_mutate(rng, base if i % 2 else variant, 0.015).encode()
+             for i in range(n_reads)]
+    return g, reads
+
+
+def _drift_layout(flat, dg, q, lengths, ub, aln_type=None):
+    lens = lengths.cpu().numpy()
+    n_min, n_max = int(lens.min()), int(lens.max())
+    S = tbd.drift_steps_for(n_min, n_max)
+    ws, width, sr = tbd.band_windows_drift(flat, n_min, n_max, COSTS, ub, S,
+                                           aln_type=aln_type)
+    L = int(q.shape[1])
+    Lp = max(L, -(-(int(ws.max()) + width) // 128) * 128)
+    prep = cf.prepare_banded_drift(dg, COSTS, ws, width, sr, S, Lp)
+    qpad = torch.nn.functional.pad(q, (prep["mq"], Lp - L))
+    return prep, qpad, n_min
+
+
+@pytest.mark.parametrize("ub", [60, 150])
+@pytest.mark.parametrize("capped", [False, True])
+def test_drift_kernel_matches_plain(card, ub, capped):
+    """B3: the circular ring rows give what the literal rolls give."""
+    g, reads = _sv_case(11)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    prep, qpad, n_min = _drift_layout(flat, dg, q, lengths, ub)
+    assert prep["mq"] > 0 and prep["S"] >= 4
+    max_run = tbd.ins_run_cap(COSTS, ub, prep["width"]) if capped else 0
+    nbs = cf.drift_units(lengths, n_min)
+    before = cf.drift_end_rows.launches
+    got = cf.drift_end_rows(dg, qpad, nbs, COSTS, prep, max_run)
+    torch.cuda.synchronize()
+    assert cf.drift_end_rows.launches == before + 1
+    assert torch.equal(got, cf.drift_end_rows_plain(dg, qpad, nbs, COSTS,
+                                                    prep, max_run))
+    scores = cf.drift_scores(dg, qpad, lengths, COSTS, prep, n_min,
+                             max_run=max_run).cpu().numpy()
+    na = NativeAligner(g)
+    ok = scores <= ub
+    assert ok.any()
+    assert [int(s) for s in scores[ok]] == \
+        [na.align(r, COSTS)[0] for r, v in zip(reads, ok) if v]
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_drift_ef_kernel_matches_plain(card, capped):
+    """B6: best tiles equal the plain version's under the bounded span."""
+    g, reads = _sv_case(12)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    ub = 120
+    prep, qpad, n_min = _drift_layout(flat, dg, q, lengths, ub, BOUNDED)
+    _, end_ok, jlo = ends_free_device_params(flat, BOUNDED, lengths,
+                                             dg.n_nodes_padded)
+    max_run = tbd.ins_run_cap(COSTS, ub, prep["width"]) if capped else 0
+    nbs = cf.drift_units(lengths, n_min)
+    before = cf.drift_ef_best_rows.launches
+    got = cf.drift_ef_best_rows(dg, qpad, nbs, lengths, jlo, COSTS, prep,
+                                end_ok, max_run)
+    torch.cuda.synchronize()
+    assert cf.drift_ef_best_rows.launches == before + 1
+    assert torch.equal(got, cf.drift_ef_best_rows_plain(
+        dg, qpad, nbs, lengths, jlo, COSTS, prep, end_ok, max_run))
+
+
+@pytest.mark.parametrize("span", [SEMI_GLOBAL, BOUNDED],
+                         ids=["semi-global", "bounded"])
+@pytest.mark.parametrize("capped", [False, True])
+def test_ef_kernel_matches_plain(card, span, capped):
+    """B5: the positional best row, free graph begin or not."""
+    g, reads = _case(13, 600, 64, div=0.03)
+    reads = [r[10:len(r) - 20] for r in reads]
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    lens = lengths.cpu().numpy()
+    ub = 150
+    ws, width, _, _ = tbd.band_windows(flat, int(lens.min()),
+                                       int(lens.max()), COSTS, ub,
+                                       aln_type=span)
+    prep = cf.prepare_banded(dg, COSTS, (ws // 128) * 128, width + 128,
+                             int(q.shape[1]))
+    assert prep["width"] < int(q.shape[1])
+    fs, end_ok, jlo = ends_free_device_params(flat, span, lengths,
+                                              dg.n_nodes_padded)
+    max_run = tbd.ins_run_cap(COSTS, ub, prep["width"]) if capped else 0
+    before = cf.ef_best_rows.launches
+    got = cf.ef_best_rows(dg, q, COSTS, prep, fs, end_ok, max_run)
+    torch.cuda.synchronize()
+    assert cf.ef_best_rows.launches == before + 1
+    assert torch.equal(got, cf.ef_best_rows_plain(dg, q, COSTS, prep, fs,
+                                                  end_ok, max_run))
+
+
+@pytest.mark.parametrize("read_len,max_run", [(None, 0), (None, 16),
+                                              (12000, 64)])
+def test_bounded_kernel_matches_plain(card, read_len, max_run):
+    """B4: in shared memory at short rows, in global memory at a 12 kb
+    row; capped and uncapped."""
+    g, reads = _case(14, 250, 64 if read_len is None else 2,
+                     read_len=read_len)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    plan = cf.bounded_plan(dg.window, int(q.shape[1]))
+    assert plan["placement"] == ("smem" if read_len is None else "global")
+    fs, end_ok, jlo = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                              dg.n_nodes_padded)
+    before = cf.bounded_best_rows.launches
+    got = cf.bounded_best_rows(dg, q, COSTS, fs, end_ok, max_run)
+    torch.cuda.synchronize()
+    assert cf.bounded_best_rows.launches == before + 1
+    assert torch.equal(got, cf.bounded_best_rows_plain(dg, q, COSTS, fs,
+                                                       end_ok, max_run))
+
+
+def test_ends_free_scores_on_card_match_exact_engine(card):
+    """The slice on the card: fragments under the semi-global span through
+    the ladder (B5) and its capped full fill (B4), mixed lengths under the
+    bounded span (B6) and the global span (B3); scores equal the exact
+    full fill's, and sampled reads the exact engine's."""
+    g, reads = _case(15, 700, 64, div=0.03)
+    frags = [r[(7 * i) % 60:len(r) - (11 * i) % 90]
+             for i, r in enumerate(reads)]
+    scorer = BandedScorer(g.flatten(), COSTS, device=card,
+                          aln_type=SEMI_GLOBAL)
+    q, lengths = pack_queries(frags, device=card)
+    before = cf.ef_best_rows.launches, cf.bounded_best_rows.launches
+    got = scorer.scores(q, lengths, ub=60, max_retries=1)
+    assert cf.ef_best_rows.launches > before[0]
+    assert cf.bounded_best_rows.launches > before[1]
+    exact = dp_fill_scores_ends_free(scorer.dg, scorer.flat, q, lengths,
+                                     COSTS, SEMI_GLOBAL).cpu().numpy()
+    assert (got == exact).all()
+    engine = PoastaAligner(COSTS, SEMI_GLOBAL, heuristic="dijkstra")
+    for i in (0, 9, 31):
+        assert engine.align(g, frags[i]).score == int(got[i])
+
+    g, reads = _sv_case(16)
+    na = NativeAligner(g)
+    for span, counter in ((None, cf.drift_end_rows),
+                          (BOUNDED, cf.drift_ef_best_rows)):
+        mapper = BatchMapper(g, COSTS, device=card, aln_type=span)
+        q, lengths = pack_queries(reads, device=card)
+        before = counter.launches
+        got = mapper.scorer.scores(q, lengths, ub=60)  # a drifting tier
+        assert counter.launches > before, span
+        assert (mapper.score_batch(reads) == got).all()
+        if span is None:
+            assert list(got) == [na.align(r, COSTS)[0] for r in reads]
+        else:
+            exact = dp_fill_scores_ends_free(
+                mapper.dg, mapper.flat, q, lengths, COSTS, span)
+            assert (got == exact.cpu().numpy()).all()

@@ -69,10 +69,10 @@ def case():
     flat = g.flatten()
     na = NativeAligner(g)
     jq, jl = jwf.pack_queries(reads)
-    tq, tl = twf.pack_queries(reads)
+    tq, tl = twf.pack_queries(reads, device="cpu")
     return {
         "flat": flat, "reads": reads,
-        "jdg": jwf.DeviceGraph.build(flat), "tdg": twf.DeviceGraph.build(flat),
+        "jdg": jwf.DeviceGraph.build(flat), "tdg": twf.DeviceGraph.build(flat, device="cpu"),
         "jq": jq, "jl": jl, "tq": tq, "tl": tl,
         "exact": np.array([na.align(q, COSTS)[0] for q in reads]),
     }

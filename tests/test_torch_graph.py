@@ -79,7 +79,7 @@ def _assert_same_graph(jdg, tdg):
 def test_device_graph_build_matches(name):
     flat = GRAPHS[name].flatten()
     jdg = jwf.DeviceGraph.build(flat)
-    tdg = twf.DeviceGraph.build(flat)
+    tdg = twf.DeviceGraph.build(flat, device="cpu")
     _assert_same_graph(jdg, tdg)
     assert tdg.n_nodes_padded % twf.NODE_BUCKET == 0
     assert tdg.symbols.dtype == torch.int32
@@ -105,7 +105,7 @@ def test_pack_queries_matches():
     reads = [_mutate(rng, "ACGT" * 40, 0.1).encode() for _ in range(9)]
     reads.append(b"")
     jq, jl = jwf.pack_queries(reads)
-    tq, tl = twf.pack_queries(reads)
+    tq, tl = twf.pack_queries(reads, device="cpu")
     assert tq.dtype == tl.dtype == torch.int32
     assert (np.asarray(jq) == tq.numpy()).all()
     assert (np.asarray(jl) == tl.numpy()).all()
@@ -118,9 +118,9 @@ def test_device_graph_from_reference_round_trips(name):
     arrays = {k: _as_np(getattr(jdg, k)) for k in REFERENCE_KEYS}
     arrays["window"] = jdg.window
     arrays["end_rank_i"] = jdg.end_rank_i
-    tdg = device_graph_from_reference(arrays)
+    tdg = device_graph_from_reference(arrays, device="cpu")
     _assert_same_graph(jdg, tdg)
-    _assert_same_graph(twf.DeviceGraph.build(flat), tdg)
+    _assert_same_graph(twf.DeviceGraph.build(flat, device="cpu"), tdg)
 
 
 def test_device_graph_from_reference_rejects_bad_meta():
@@ -129,7 +129,7 @@ def test_device_graph_from_reference_rejects_bad_meta():
     arrays["window"] = jdg.window
     arrays["end_rank_i"] = jdg.end_rank_i + 1
     with pytest.raises(ValueError):
-        device_graph_from_reference(arrays)
+        device_graph_from_reference(arrays, device="cpu")
     del arrays["meta"]
     with pytest.raises(KeyError):
-        device_graph_from_reference(arrays)
+        device_graph_from_reference(arrays, device="cpu")

@@ -2,7 +2,9 @@
 against ``poasta_tpu``'s: scores and alignments equal, GAF byte-equal, on
 the dense route, the banded route (device traceback plus native host
 backtrace), the pipelined multi-batch path, ``--engine exact`` and shard
-part files.  Options the port does not carry yet exit 1.
+part files.  Options the port does not carry yet exit 1.  The port runs
+on the CPU here because every call names it (``device="cpu"``,
+``--device cpu``); without that it takes the card or fails.
 """
 
 import os
@@ -66,7 +68,7 @@ def test_align_batch_matches_jax(route, monkeypatch):
     if route == "banded":
         monkeypatch.setattr(BatchMapper, "DENSE_TABLE_BUDGET", 0)
         monkeypatch.setattr(JaxMapper, "DENSE_TABLE_BUDGET", 0)
-    port = BatchMapper(g, COSTS)
+    port = BatchMapper(g, COSTS, device="cpu")
     ref = JaxMapper(g, COSTS).align_batch(reads)
     got = port.align_batch(reads)
     assert port.takes_banded_path(reads) == (route == "banded")
@@ -105,7 +107,8 @@ def test_cli_gaf_byte_equal(mode, tmp_path, monkeypatch):
     out_j, out_p = tmp_path / "jax.gaf", tmp_path / "port.gaf"
     assert jax_lasagna(["align", gfa, fa, "--mesh", "off", "-o", str(out_j),
                         *extra]) in (0, None)
-    assert port_lasagna(["align", gfa, fa, "-o", str(out_p), *extra]) == 0
+    assert port_lasagna(["align", gfa, fa, "-o", str(out_p), "--device",
+                         "cpu", *extra]) == 0
     text = out_p.read_text()
     assert len(text.splitlines()) == len(reads)
     assert text == out_j.read_text()
@@ -118,11 +121,11 @@ def test_cli_shard_parts_byte_equal(tmp_path):
         args = ["--shard-index", str(k), "--shard-count", "3"]
         jax_lasagna(["align", gfa, fa, "-o", str(tmp_path / "j.gaf"), *args])
         assert port_lasagna(["align", gfa, fa, "-o", str(tmp_path / "p.gaf"),
-                             *args]) == 0
+                             "--device", "cpu", *args]) == 0
         part = (tmp_path / f"p.gaf.part{k}").read_text()
         assert part and part == (tmp_path / f"j.gaf.part{k}").read_text()
-    assert port_lasagna(["align", gfa, fa, "--shard-index", "3",
-                         "--shard-count", "3"]) == 1
+    assert port_lasagna(["align", gfa, fa, "--device", "cpu",
+                         "--shard-index", "3", "--shard-count", "3"]) == 1
 
 
 @pytest.mark.parametrize("argv", [
@@ -136,8 +139,22 @@ def test_cli_unported_options_exit_1(argv, tmp_path, capsys):
     g, reads = _workload(n_reads=2)
     gfa, fa = _write_inputs(tmp_path, g, reads)
     out = tmp_path / "out.gaf"
-    assert port_lasagna(["align", gfa, fa, "-o", str(out), *argv]) == 1
+    assert port_lasagna(["align", gfa, fa, "-o", str(out), "--device", "cpu",
+                         *argv]) == 1
     assert "not ported yet" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_cli_without_a_card_exits_1(tmp_path, capsys):
+    """The default device is the card: with none, the CLI says so and
+    exits 1 instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    g, reads = _workload(n_reads=2)
+    gfa, fa = _write_inputs(tmp_path, g, reads)
+    out = tmp_path / "out.gaf"
+    assert port_lasagna(["align", gfa, fa, "-o", str(out)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
     assert not out.exists()
 
 
@@ -147,13 +164,14 @@ def test_cli_run_imports_no_jax(tmp_path):
     g, reads = _workload(seed=43, n_reads=3)
     gfa, fa = _write_inputs(tmp_path, g, reads)
     out = tmp_path / "out.gaf"
-    argv = ["align", gfa, fa, "-o", str(out)]
+    argv = ["align", gfa, fa, "-o", str(out), "--device", "cpu"]
     code = ("import sys\n"
             "from poasta_tpu_torch.parallel.mapper import BatchMapper\n"
             "from poasta_tpu_torch.cli.lasagna import main\n"
             "BatchMapper.DENSE_TABLE_BUDGET = 0\n"
             f"assert main({argv!r}) == 0\n"
-            "assert 'jax' not in sys.modules\n")
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'poasta_tpu')]\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo)
     res = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
@@ -168,7 +186,7 @@ def test_lasagna_gaf_golden(tmp_path, reference_tests_dir):
     out_path = tmp_path / "out.gaf"
     rc = port_lasagna(["align", f"{reference_tests_dir}/test.gfa",
                        f"{reference_tests_dir}/small_test.query.fa",
-                       "-o", str(out_path)])
+                       "-o", str(out_path), "--device", "cpu"])
     assert rc == 0
     golden = os.path.join(os.path.dirname(__file__), "goldens",
                           "lasagna_small_query.gaf")
@@ -177,11 +195,19 @@ def test_lasagna_gaf_golden(tmp_path, reference_tests_dir):
 
 
 def test_batch_mapper_rejects_unported_spans():
-    from poasta_tpu.aligner.costs import UNBOUNDED, EndsFree
+    """An ends-free span scores but does not align yet; a span object of
+    another package is refused by name, not guessed at."""
+    from poasta_tpu_torch import UNBOUNDED, EndsFree
+    from poasta_tpu_torch import Global as PortGlobal
 
     g, _ = _workload(n_reads=2)
-    with pytest.raises(NotImplementedError):
-        BatchMapper(g, COSTS, aln_type=EndsFree(UNBOUNDED, UNBOUNDED,
-                                                UNBOUNDED, UNBOUNDED))
-    assert np.all(BatchMapper(g, COSTS, aln_type=Global()).score_batch(
-        [b"ACGT"]) > 0)
+    semi = BatchMapper(g, COSTS, device="cpu",
+                       aln_type=EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED,
+                                         UNBOUNDED))
+    assert np.all(semi.score_batch([b"ACGT"]) == 0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        semi.align_batch([b"ACGT"])
+    with pytest.raises(TypeError):
+        BatchMapper(g, COSTS, device="cpu", aln_type=Global())
+    assert np.all(BatchMapper(g, COSTS, device="cpu", aln_type=PortGlobal()
+                              ).score_batch([b"ACGT"]) > 0)

@@ -81,8 +81,8 @@ def _run_both(g, reads, calls):
     the same sequence of ``scores`` calls; return per-call results."""
     flat = g.flatten()
     jq, jl = jwf.pack_queries(reads)
-    tq, tl = pack_queries(reads)
-    port = BandedScorer(flat, COSTS)
+    tq, tl = pack_queries(reads, device="cpu")
+    port = BandedScorer(flat, COSTS, device="cpu")
     out = []
     with accel_sim():
         ref = jbd.BandedScorer(flat, COSTS)
@@ -107,7 +107,7 @@ def test_uniform_batch_matches_jax_and_native():
         assert (p == j).all()
         assert (p == exact).all()
     # the library entry point: same scores, fresh mapper
-    mapper = BatchMapper(g, COSTS)
+    mapper = BatchMapper(g, COSTS, device="cpu")
     assert (mapper.score_batch(reads) == exact).all()
     assert mapper.scorer.stats["fullfill_fallbacks"] == 0
 
@@ -189,8 +189,8 @@ def test_fills_refuse_other_devices():
     """Only a CPU tensor takes the plain version; any other device must
     launch a kernel or raise."""
     g, base = _graph(random.Random(1), 60, [])
-    scorer = BandedScorer(g.flatten(), COSTS)
-    q, _ = pack_queries([base.encode()])
+    scorer = BandedScorer(g.flatten(), COSTS, device="cpu")
+    q, _ = pack_queries([base.encode()], device="cpu")
     q = q.to("meta")
     with pytest.raises(ValueError):
         tcf.fill_end_rows(scorer.dg, q, COSTS)

@@ -87,8 +87,8 @@ def _case(name):
 def _setup(name):
     g, reads, costs = _case(name)
     flat = g.flatten()
-    dg = DeviceGraph.build(flat)
-    q, lengths = pack_queries(reads)
+    dg = DeviceGraph.build(flat, device="cpu")
+    q, lengths = pack_queries(reads, device="cpu")
     scores = scan_scores(dg, q, lengths, costs).numpy()
     return g, flat, dg, reads, q, lengths, scores, costs
 
@@ -122,7 +122,8 @@ def test_schedule_matches_jax(name):
         lens = lengths.numpy()
         j_packed, j_any, j_starts, j_ok = jpt.build_trace_schedule(
             flat, lens, k, Wb, Np)
-        steps, ok = tr.build_trace_schedule(flat, lens, k, Wb, Np)
+        steps, ok = tr.build_trace_schedule(flat, lens, k, Wb, Np,
+                                            device="cpu")
         assert np.array_equal(ok, np.asarray(j_ok))
         assert np.array_equal(steps.numpy(), _unpack_bits(j_packed, Np))
         assert np.array_equal(steps.numpy().any(axis=0).astype(np.int32),
@@ -297,7 +298,7 @@ def test_read_past_free_memory_takes_host_backtrace(monkeypatch):
 def _mapper_case(budget, monkeypatch):
     g, reads, costs = _case("seed17")
     monkeypatch.setattr(BatchMapper, "DENSE_TABLE_BUDGET", budget)
-    return g, reads, costs, BatchMapper(g, costs)
+    return g, reads, costs, BatchMapper(g, costs, device="cpu")
 
 
 def test_trace_error_propagates(monkeypatch):
@@ -317,7 +318,7 @@ def test_missing_native_engine_raises(monkeypatch):
     """ROADMAP C4: the reference's ``_init_banded`` quietly takes the dense
     route when the native engine cannot be built (``mapper.py:976-977``).
     The port raises."""
-    import poasta_tpu.native as native
+    import poasta_tpu_torch.native as native
 
     g, reads, costs, mapper = _mapper_case(0, monkeypatch)
 
@@ -331,7 +332,7 @@ def test_missing_native_engine_raises(monkeypatch):
 
 def test_trace_wrappers_refuse_other_devices():
     g, reads, costs = _case("edges")
-    dg = DeviceGraph.build(g.flatten())
+    dg = DeviceGraph.build(g.flatten(), device="cpu")
     meta = torch.zeros((1, 512), dtype=torch.int32, device="meta")
     ws = torch.zeros((1, dg.n_nodes_padded), dtype=torch.int32,
                      device="meta")
