@@ -14,7 +14,13 @@ bounded ends-free span, and the semi-global fragments on the uniform
 graph.  Then it profiles the port's ``lasagna align`` CLI on the uniform
 graph and reads (``-j 64``) the same way, and splits its host wall by
 stage (GFA load, mapper set-up, scoring on the worker thread, alignment,
-GAF text).  Needs one card; imports no JAX.
+GAF text).  Last, ``chip_smoke.py``'s pangenome configuration under the
+CLI's semi-global span: one seeded ``align_batch`` of 64 reads (after one
+batch through the full fill and one seeded warm-up), then the CLI with
+``-m semi-global`` on 256 reads, each with the host time of the seeding
+stages (k-mer hits, cluster proposals, the corridor fill, the
+certificate), the anchored trace and ``align_anchored``.  Needs one card;
+imports no JAX.
 """
 
 import os
@@ -67,6 +73,7 @@ def main() -> int:
                     BatchMapper(graph, costs, device=dev, aln_type=semi),
                     fragment_reads(seqs, N_READS, 2000, 4000), 1, card)
     profile_lasagna(graph, reads, card)
+    profile_pangenome(dev, costs, semi, card)
     return 0
 
 
@@ -128,45 +135,76 @@ def _report(what, prof, wall, extra, card):
               flush=True)
 
 
-def profile_lasagna(graph, reads, card):
-    """One profiled run of ``lasagna align`` on the uniform config, with
-    the host wall of each stage summed over its calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _timed(stages, owner, name, label):
+    """Patch ``owner.name`` to add each call's host wall to
+    ``stages[label]`` as (seconds, calls)."""
+    real = getattr(owner, name)
 
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            tot, cnt = stages.get(label, (0.0, 0))
+            stages[label] = (tot + time.perf_counter() - t0, cnt + 1)
+    return mock.patch.object(owner, name, wrapper)
+
+
+def _print_stages(plan, stages):
+    for _, _, label in plan:
+        tot, cnt = stages.get(label, (0.0, 0))
+        print(f"[profile]   host {tot * 1e3:10.3f} ms  x{cnt}  {label}",
+              flush=True)
+
+
+def _cli_plan():
     import poasta_tpu_torch.io as io_mod
-    from chip_smoke import write_inputs
-    from poasta_tpu_torch.cli.lasagna import main as lasagna_main
     from poasta_tpu_torch.parallel import mapper as mapper_mod
 
-    tmp = tempfile.mkdtemp(prefix="poasta_profile_")
-    gfa, fa = write_inputs(graph, reads, tmp)
-    stages = {}
-
-    def timed(owner, name, label):
-        real = getattr(owner, name)
-
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return real(*args, **kwargs)
-            finally:
-                tot, cnt = stages.get(label, (0.0, 0))
-                stages[label] = (tot + time.perf_counter() - t0, cnt + 1)
-        return mock.patch.object(owner, name, wrapper)
-
     M = mapper_mod.BatchMapper
-    plan = [(io_mod, "load_graph_from_gfa", "GFA load"),
+    return [(io_mod, "load_graph_from_gfa", "GFA load"),
             (M, "__init__", "mapper set-up"),
             (M, "prescore", "scoring (worker thread)"),
             (M, "align_batch", "align_batch (main thread)"),
             (mapper_mod, "trace_align", "  of it: trace_align"),
             (io_mod, "alignment_to_gaf", "GAF records")]
-    argv = ["align", gfa, fa, "-o", os.path.join(tmp, "out.gaf"), "-j", "64"]
+
+
+def _seed_plan():
+    """The stages of the seeded ends-free path, by the names the mapper
+    calls them under."""
+    from poasta_tpu_torch.native import NativeAligner
+    from poasta_tpu_torch.parallel import mapper as mapper_mod
+
+    return [(mapper_mod.KmerIndex, "__init__", "  k-mer index (once)"),
+            (mapper_mod.KmerIndex, "seed_hits", "  seed_hits"),
+            (mapper_mod, "propose_clusters", "  propose_clusters"),
+            (mapper_mod, "seed_scores", "  seed_scores (schedule + B8)"),
+            (mapper_mod, "certify_reads", "  certify_reads"),
+            (mapper_mod, "dp_fill_ends_free_with_ends", "  full fill (B7)"),
+            (NativeAligner, "align_anchored", "  align_anchored")]
+
+
+def profile_lasagna(graph, reads, card, what="uniform", extra_argv=(),
+                    extra_plan=()):
+    """One profiled run of ``lasagna align`` (``-j 64``), with the host
+    wall of each stage summed over its calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import write_inputs
+    from poasta_tpu_torch.cli.lasagna import main as lasagna_main
+
+    tmp = tempfile.mkdtemp(prefix="poasta_profile_")
+    gfa, fa = write_inputs(graph, reads, tmp)
+    stages = {}
+    plan = _cli_plan() + list(extra_plan)
+    argv = ["align", gfa, fa, "-o", os.path.join(tmp, "out.gaf"), "-j", "64",
+            *extra_argv]
     lasagna_main(argv)  # warm-up: the first run pays the CUDA context
     with ExitStack() as stack:
         for owner, name, label in plan:
-            stack.enter_context(timed(owner, name, label))
+            stack.enter_context(_timed(stages, owner, name, label))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -175,12 +213,47 @@ def profile_lasagna(graph, reads, card):
                 raise RuntimeError("lasagna align failed")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _report(f"lasagna align, {len(reads)} reads, -j 64", prof, wall,
+    _report(f"lasagna align {what}, {len(reads)} reads, -j 64 "
+            f"{' '.join(extra_argv)}", prof, wall,
             f"{len(reads) / wall:.2f} reads/s", card)
-    for _, _, label in plan:
-        tot, cnt = stages.get(label, (0.0, 0))
-        print(f"[profile]   host {tot * 1e3:10.3f} ms  x{cnt}  {label}",
-              flush=True)
+    _print_stages(plan, stages)
+
+
+def profile_pangenome(dev, costs, semi, card):
+    """The pangenome configuration under the semi-global span: one seeded
+    ``align_batch`` of 64 reads, then the CLI on all 256."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import PAN_BATCH, pangenome_workload
+    from poasta_tpu_torch import BatchMapper
+    from poasta_tpu_torch.parallel import mapper as mapper_mod
+
+    graph, reads = pangenome_workload()
+    mapper = BatchMapper(graph, costs, device=dev, aln_type=semi)
+    batch = reads[:PAN_BATCH]
+    mapper.align_batch(batch)  # the full fill teaches the seed rates
+    mapper.align_batch(batch)  # seeded warm-up
+    stages = {}
+    plan = _seed_plan() + [(mapper_mod, "trace_align", "  trace_align")]
+    with ExitStack() as stack:
+        for owner, name, label in plan:
+            stack.enter_context(_timed(stages, owner, name, label))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mapper.align_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _report(f"pangenome seeded align_batch, {PAN_BATCH} reads", prof, wall,
+            f"{PAN_BATCH / wall:.2f} reads/s, seed stats "
+            f"{mapper.last_seed_stats}, anchored path "
+            f"{mapper.last_ends_free_stats}", card)
+    _print_stages(plan, stages)
+    profile_lasagna(graph, reads, card, what="pangenome",
+                    extra_argv=("-m", "semi-global"),
+                    extra_plan=_seed_plan())
 
 
 if __name__ == "__main__":

@@ -65,6 +65,30 @@ each run with every launch counter zeroed just before and read just after:
 * 7d holds B3, B4, B5 and B6 against their plain versions at the inputs
   7a-7c gave them.
 
+Phase 8 drives ends-free alignment, the fourth main path, on the bench's
+pangenome configuration uncut (seed 17: a 50,000-base linear graph with an
+edge ``v -> v+3`` every 500 nodes, reads of 5,000 bases at 1.5%, the CLI's
+semi-global span), with 256 reads so that the CLI at ``-j 64`` runs four
+batches: the first learns the score rates through the bounded full fill
+with end states (B7), the others seed through the corridor fill (B8), and
+every batch is traced from its end states (B18 with ``free_start``):
+
+* 8a ``BatchMapper(..., aln_type=semi-global).align_batch`` on 64 reads,
+  three calls: the seeded calls must seed (``seeded > 0``), every (score,
+  end rank, end offset) of the seeded scoring equals the uncapped full
+  fill's, every alignment costs its score, and no read falls back;
+* 8b the port's CLI, ``-m semi-global -j 64``, 256 reads, from GFA load to
+  the last GAF line, with every launch counter zeroed just before and read
+  just after: every ``AS:i`` equals ``score_batch``'s, and the GAF is
+  byte-equal to the runs with ``POASTA_DEVICE_TRACE=0`` and with
+  ``POASTA_SEED=0`` (three routes, one answer);
+* 8c four reads of at most 300 bases on a 3,000-base graph of the same
+  shape (seeding forced by ``POASTA_SEED=all``) under both CLI spans
+  against the exact A* engine under Dijkstra;
+* 8d holds B7, B8 and B18 with ``free_start`` against their plain versions
+  at the inputs 8b gave them (B8 and B18 on 8 reads of their calls: the
+  plain versions take about a millisecond a rank whatever the batch).
+
 The ``kernels`` line gives, for every kernel, its launches on the main
 paths, its time and its plain version's at the main path's shapes, and
 ``bound_ms``: the least time the card could take for the same work, the
@@ -111,6 +135,11 @@ SV_SEED, SV_DIV, FRAG_SEED = 13, 0.015, 19
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 BIG_GRAPH_LEN, BIG_READS, BIG_SEED, BIG_DIV = 45000, 16, 9, 0.01
+B7_REPLACES = "poasta_tpu/ops/pallas_fill.py:637"
+B8_REPLACES = "poasta_tpu/ops/pallas_seed.py:48"
+PAN_LEN, PAN_READS, PAN_READ_LEN, PAN_SEED, PAN_DIV = (50000, 256, 5000, 17,
+                                                       0.015)
+PAN_EDGE_EVERY, PAN_BATCH = 500, 64
 
 
 def _mutate(rng, s, d, target_len=None):
@@ -196,6 +225,32 @@ def fragment_reads(seqs, n_reads, lo, hi):
     return out
 
 
+def backbone_graph(rng, n):
+    """A linear graph of ``n`` random bases with an edge v -> v+3 every
+    ``PAN_EDGE_EVERY`` nodes; returns (graph, base)."""
+    from poasta_tpu_torch import POAGraph
+
+    base = "".join(rng.choice("ACGT") for _ in range(n))
+    graph = POAGraph()
+    graph.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
+    for v in range(0, n - 3, PAN_EDGE_EVERY):
+        graph.add_edge(v, v + 3, 0, 1)
+    graph.post_process()
+    return graph, base
+
+
+def pangenome_workload():
+    """bench.py's pangenome semi-global configuration (seed 17), with 256
+    reads where the bench draws 64: the first 64 are the bench's."""
+    rng = random.Random(PAN_SEED)
+    graph, base = backbone_graph(rng, PAN_LEN)
+    reads = []
+    for _ in range(PAN_READS):
+        a = rng.randrange(0, PAN_LEN - PAN_READ_LEN)
+        reads.append(_mutate(rng, base[a:a + PAN_READ_LEN], PAN_DIV).encode())
+    return graph, reads
+
+
 def _bound(bytes_moved, ops):
     """The least time the card could take, in ms, and what sets it."""
     by = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -232,6 +287,13 @@ PRED_OPS, TRACE_PRED_OPS = 2, 6
 DECODE_OPS = 3 + 9 + 2 + 3 + 3 + 2 + 2 + 2 + 3 + 3 + 1
 # ... and its bytes: a pointer word and a window start in, a step word out.
 DECODE_BYTES = 12
+# The bounded full fill with end ranks (B7) at a permitted rank, in place of
+# B4's one min: a compare, and a select each for the value and the rank.
+ENDS_OPS = 3
+# The seeded corridor fill (B8) at a rank that may end an alignment: the
+# window test (two compares, an and), the candidate (un-tilt add, clamp) and
+# the ordered update (value compare, offset compare, and/or, three selects).
+SEED_END_OPS = 3 + 2 + 7
 
 
 def fill_bound(dg, B, lanes, q_lanes, out_lanes, tilted,
@@ -566,6 +628,9 @@ def main() -> int:
     ef_results, ef_launches = ends_free_phases(card, dev, costs, graph, seqs)
     results.update(ef_results)
 
+    # ---- 8. ends-free alignment on the pangenome configuration ------------
+    pan_results, pan_launches = pangenome_phases(card, dev, costs)
+
     def by_call(name):
         """A fill kernel's launches in each main-path call that used it."""
         i = {"B1": 0, "B2": 1}.get(name)
@@ -602,8 +667,26 @@ def main() -> int:
         {"name": "trace_decode_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
          "replaces": DECODE_REPLACES, "launches": lasagna["launches"][3],
+         "launches_by_call": {
+             "lasagna align uniform": lasagna["launches"][3],
+             "lasagna align -m semi-global pangenome":
+                 pan_launches["decode"]},
          **trace_results["decode"]},
+        {"name": "full_fill_kernel<bounded, ends>", "route": "cuda",
+         "source": f"poasta_tpu_torch/csrc/{full}", "replaces": B7_REPLACES,
+         "launches": pan_launches["B7"], **pan_results["B7"]},
+        {"name": "seed_fill_kernel", "route": "cuda",
+         "source": "poasta_tpu_torch/csrc/seed_kernel.cu",
+         "replaces": B8_REPLACES, "launches": pan_launches["B8"],
+         **pan_results["B8"]},
+        {"name": "trace_kernel<free_start>", "route": "cuda",
+         "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
+         "replaces": B18_REPLACES, "launches": pan_launches["B18"],
+         **pan_results["B18"]},
     ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} launched on no main path")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -714,11 +797,13 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
         per_batch.append(dict(self.last_banded_stats))
         return out
 
-    def rec_fill(g_dg, qpad, wstarts, anchor_r, anchor_j, c, Wb):
+    def rec_fill(g_dg, qpad, wstarts, anchor_r, anchor_j, c, Wb,
+                 free_start=False):
         captured.setdefault("fill", (g_dg, dict(
             qpad=qpad, wstarts=wstarts, anchor_r=anchor_r,
             anchor_j=anchor_j), c, Wb))
-        return real_fill(g_dg, qpad, wstarts, anchor_r, anchor_j, c, Wb)
+        return real_fill(g_dg, qpad, wstarts, anchor_r, anchor_j, c, Wb,
+                         free_start)
 
     def rec_decode(ptr, *walk):
         captured.setdefault("decode", walk)
@@ -1199,6 +1284,307 @@ def ends_free_phases(card, dev, costs, graph, seqs):
         per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
         table_cols=1))
     _phase_done("7d B3-B6 at the main paths' shapes")
+    return results, launches
+
+
+def pangenome_phases(card, dev, costs):
+    """Phases 8a-8d; returns (kernel comparisons of B7, B8 and B18 with
+    ``free_start``, their launches in the CLI run of 8b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        EndsFree,
+        PoastaAligner,
+        included,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.ops import cuda_fill as cf
+    from poasta_tpu_torch.ops import seed as sd
+    from poasta_tpu_torch.ops import trace as tr
+    from poasta_tpu_torch.parallel import mapper as mapper_mod
+
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    free = EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED, UNBOUNDED)
+    wrappers = {"B7": cf.bounded_end_rows, "B8": sd.seed_end_states,
+                "B18": tr.trace_fill, "decode": tr.trace_decode}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    graph, reads = pangenome_workload()
+    lens = [len(r) for r in reads]
+    mapper = BatchMapper(graph, costs, device=dev, aln_type=semi)
+    dg, flat = mapper.dg, mapper.flat
+    print(f"[pangenome] graph: {flat.n_nodes} nodes (Np {dg.n_nodes_padded}), "
+          f"W {dg.window}, P {int(dg.pred_slots.shape[1])}; {PAN_READS} reads "
+          f"of {min(lens)}-{max(lens)}", flush=True)
+    _phase_done("8 pangenome set-up")
+
+    # ---- 8a. align_batch: one batch through B7, then seeded ---------------
+    batch = reads[:PAN_BATCH]
+    zero()
+    outs, secs, seed_stats = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(mapper.align_batch(batch))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        seed_stats.append(mapper.last_seed_stats)
+        if mapper.last_ends_free_stats["exact_fallback"] != 0 \
+                or mapper.last_ends_free_stats["anchored_ok"] != PAN_BATCH:
+            raise AssertionError(f"8a: {mapper.last_ends_free_stats}")
+    n8a = read()
+    print(f"[pangenome] align_batch({PAN_BATCH} reads) x3: "
+          f"{[round(t, 3) for t in secs]} s "
+          f"({PAN_BATCH / secs[-1]:.2f} reads/s on the last), seed stats "
+          f"{seed_stats[1:]}, anchored path {mapper.last_ends_free_stats}, "
+          f"seed rates {mapper._seed_rate}, launches {n8a}  [{card}]",
+          flush=True)
+    if seed_stats[0] is not None:
+        raise AssertionError("8a: the first batch seeded without rates")
+    for st in seed_stats[1:]:
+        if not st or st["seeded"] <= 0:
+            raise AssertionError(f"8a: the seeded path is inert: {st}")
+    if min(n8a.values()) <= 0:
+        raise AssertionError(f"8a: a kernel never launched: {n8a}")
+    pairs = [[(s, list(a)) for s, a in out] for out in outs]
+    if pairs[0] != pairs[1] or pairs[1] != pairs[2]:
+        raise AssertionError("8a: the seeded calls' alignments differ from "
+                             "the full fill's")
+    for read_, (score, aln) in zip(batch, outs[-1]):
+        cost = wavefront_mod.alignment_cost(graph, read_, aln, costs)
+        if cost != score:
+            raise AssertionError(f"8a: an alignment costs {cost}, scored "
+                                 f"{score}")
+    q, ln = pack_queries(batch, device=dev)
+    seeded = mapper._ends_free_scores(batch, q, ln)
+    exact = [t.cpu().numpy() for t in
+             wavefront_mod.dp_fill_ends_free_with_ends(dg, flat, q, ln, costs,
+                                                       semi)]
+    for name, got, want in zip(("scores", "end ranks", "end offsets"), seeded,
+                               exact):
+        if not (got == want).all():
+            raise AssertionError(f"8a: seeded {name} differ from the "
+                                 "uncapped full fill's")
+    print(f"[pangenome] all {PAN_BATCH} (score, end rank, end offset) of the "
+          f"seeded scoring ({mapper.last_seed_stats['seeded']} seeded) equal "
+          "the uncapped full fill's; every alignment costs its score; no "
+          "exact fallback", flush=True)
+    _phase_done("8a align_batch, seeded")
+
+    # ---- 8b. main path: the port's CLI, -m semi-global --------------------
+    tmp = tempfile.mkdtemp(prefix="poasta_smoke_pan_")
+    gfa, fa = write_inputs(graph, reads, tmp)
+    per_batch, captured, on_main_path = [], {}, [False]
+    real_ef = mapper_mod.BatchMapper._align_batch_ends_free
+    real = {"B7": cf._launch_bounded_ends, "B8": sd._launch_seed,
+            "B18": tr._launch_trace}
+
+    def rec_ef(self, *args, **kwargs):
+        out = real_ef(self, *args, **kwargs)
+        per_batch.append((dict(self.last_ends_free_stats),
+                          self.last_seed_stats))
+        return out
+
+    def keep(name, q_at=1):
+        # the widest batch's inputs of the run (the last such call)
+        def rec(*args, **kwargs):
+            B = int(args[q_at].shape[0])
+            if on_main_path[0] and B >= captured.get(name, (0,))[0]:
+                captured[name] = (B, args, kwargs)
+            return real[name](*args, **kwargs)
+        return rec
+
+    def cli(out_name, env=None):
+        out_path = os.path.join(tmp, out_name)
+        os.environ.update(env or {})
+        try:
+            secs = _lasagna_run(["align", gfa, fa, "-o", out_path, "-m",
+                                 "semi-global", "-j", str(PAN_BATCH)])
+        finally:
+            for k in env or {}:
+                del os.environ[k]
+        with open(out_path) as fh:
+            return secs, fh.read()
+
+    with mock.patch.object(mapper_mod.BatchMapper, "_align_batch_ends_free",
+                           rec_ef), \
+            mock.patch.object(cf, "_launch_bounded_ends", keep("B7")), \
+            mock.patch.object(sd, "_launch_seed", keep("B8")), \
+            mock.patch.object(tr, "_launch_trace", keep("B18")):
+        zero()
+        on_main_path[0] = True
+        dev_s, dev_gaf = cli("dev.gaf")
+        on_main_path[0] = False
+        launches = read()
+    traced = sum(ef["device_traced"] for ef, _ in per_batch)
+    print(f"[lasagna] pangenome, -m semi-global -j {PAN_BATCH}, "
+          f"{len(per_batch)} batches: {PAN_READS / dev_s:.2f} reads/s "
+          f"({dev_s:.2f} s wall, GFA load to last GAF line), device traced "
+          f"{traced} of {PAN_READS}, per batch (traced, device s, host s) "
+          f"{[(ef['device_traced'], round(ef['device_s'], 3), round(ef['host_s'], 3)) for ef, _ in per_batch]}"
+          f", seed stats {[sd_ for _, sd_ in per_batch]}, launches "
+          f"{launches}  [{card}]", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"8b: a kernel of the path never launched: "
+                             f"{launches}")
+    if any(ef["exact_fallback"] for ef, _ in per_batch):
+        raise AssertionError("8b: a read fell back to the exact engine")
+    if not all(sd_ and sd_["seeded"] > 0 for _, sd_ in per_batch[1:]):
+        raise AssertionError("8b: a batch after the first did not seed")
+    scores = BatchMapper(graph, costs, device=dev,
+                         aln_type=semi).score_batch(reads)
+    lines = dev_gaf.splitlines()
+    if len(lines) != PAN_READS:
+        raise AssertionError(f"{len(lines)} GAF records for {PAN_READS} reads")
+    for line in lines:
+        fields = line.split("\t")
+        i = int(fields[0][1:])
+        as_i = [f for f in fields if f.startswith("AS:i:")]
+        if as_i != [f"AS:i:{int(scores[i])}"]:
+            raise AssertionError(f"read {i}: {as_i} but score_batch "
+                                 f"{int(scores[i])}")
+    host_s, host_gaf = cli("host.gaf", {"POASTA_DEVICE_TRACE": "0"})
+    full_s, full_gaf = cli("full.gaf", {"POASTA_SEED": "0"})
+    if host_gaf != dev_gaf or full_gaf != dev_gaf:
+        raise AssertionError("8b: the three routes' GAF differ")
+    print(f"[lasagna] all {PAN_READS} AS:i equal score_batch's; GAF "
+          f"byte-equal to POASTA_DEVICE_TRACE=0 ({host_s:.2f} s wall, "
+          f"align_anchored on {os.cpu_count()} cores) and to POASTA_SEED=0 "
+          f"({full_s:.2f} s wall, B7 every batch); seeded and traced "
+          f"{dev_s:.2f} s  [{card}]", flush=True)
+    _phase_done("8b the CLI, three routes")
+
+    # ---- 8c. short reads against the exact engine ---------------------------
+    rng = random.Random(PAN_SEED + 1)
+    s_graph, s_base = backbone_graph(rng, 3000)
+    short = []
+    for n in (150, 200, 250, 300):
+        a = rng.randrange(0, 3000 - n)
+        short.append(_mutate(rng, s_base[a:a + n], PAN_DIV).encode())
+    t0 = time.perf_counter()
+    os.environ["POASTA_SEED"] = "all"
+    try:
+        for name, span in (("semi-global", semi), ("ends-free", free)):
+            m = BatchMapper(s_graph, costs, device=dev, aln_type=span)
+            m.align_batch(short)
+            got = [s for s, _ in m.align_batch(short)]
+            engine = PoastaAligner(costs, span, heuristic="dijkstra")
+            want = [engine.align(s_graph, r).score for r in short]
+            if got != want:
+                raise AssertionError(f"8c {name}: {got} but the exact engine "
+                                     f"{want}")
+            if name == "semi-global" and not (
+                    m.last_seed_stats and m.last_seed_stats["seeded"] > 0):
+                raise AssertionError(f"8c: short reads did not seed: "
+                                     f"{m.last_seed_stats}")
+            print(f"[pangenome] 4 reads of 150-300 bases on a 3,000-base "
+                  f"graph, {name}: scores {got} equal the exact A* engine's "
+                  f"under Dijkstra; seed stats {m.last_seed_stats}",
+                  flush=True)
+    finally:
+        del os.environ["POASTA_SEED"]
+    print(f"[pangenome] 8c took {time.perf_counter() - t0:.1f} s", flush=True)
+    _phase_done("8c short reads, exact engine")
+
+    # ---- 8d. B7, B8, B18 free_start at the main path's shapes ---------------
+    results = {}
+    _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B7"]
+    L = int(q.shape[1])
+    print(f"[kernels] B7 main path: {int(q.shape[0])} reads, L {L}, "
+          f"{g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, plan "
+          f"{cf.bounded_plan(g_dg.window, L, ends=True)}", flush=True)
+    results["B7"] = _compare(
+        "B7 main path",
+        lambda: cf.bounded_end_rows(g_dg, q, c, fs, end_ok, max_run),
+        lambda: cf.bounded_end_rows_plain(g_dg, q, c, fs, end_ok, max_run),
+        card, reps=3)
+    # B4's count with the end test's three operations for its one, and a
+    # second (B, L) row written
+    results["B7"].update(fill_bound(
+        g_dg, int(q.shape[0]), L, L, 2 * L, tilted=False,
+        per_rank=RECURRENCE_OPS + ENDS_OPS * int(end_ok.sum()) / g_dg.n_nodes,
+        table_cols=1))
+
+    _, args, _ = captured["B8"]
+    (g_dg, q, wst, ln, jlo, r_begin, r_end, c, fs, end_ok, Wb, max_run) = args
+    span = r_end - r_begin
+    print(f"[kernels] B8 main path (a tight tier): {int(q.shape[0])} reads, L "
+          f"{int(q.shape[1])}, Wb {Wb}, max_run {max_run}, rank ranges of "
+          f"{int(span.min())}-{int(span.max())} ranks ({int(span.sum())} in "
+          f"all), plan {sd.seed_plan(g_dg.window, Wb)}", flush=True)
+    full_ms = _time_ms(
+        lambda: sd.seed_end_states(g_dg, q, wst, ln, jlo, r_begin, r_end, c,
+                                   fs, end_ok, Wb, max_run), 5)
+    # the plain version walks the union of the reads' ranges at about a
+    # millisecond a rank whatever the batch (a minute over this call's 64
+    # loci): the call's 8 reads whose ranges begin lowest in the graph
+    low8 = torch.argsort(r_begin)[:8]
+    q, wst, ln, jlo, r_begin, r_end = (
+        t.index_select(0, low8).contiguous()
+        for t in (q, wst, ln, jlo, r_begin, r_end))
+    ranks = int((r_end - r_begin).sum())
+    print(f"[kernels] B8: the whole call {full_ms:.3f} ms; compared and "
+          f"timed on its 8 lowest reads, ranks {int(r_begin.min())}-"
+          f"{int(r_end.max())} ({ranks} in their ranges)", flush=True)
+    results["B8"] = _compare(
+        "B8 main path (8 lowest reads)",
+        lambda: sd.seed_end_states(g_dg, q, wst, ln, jlo, r_begin, r_end, c,
+                                   fs, end_ok, Wb, max_run),
+        lambda: sd.seed_end_states_plain(g_dg, q, wst, ln, jlo, r_begin,
+                                         r_end, c, fs, end_ok, Wb, max_run),
+        card, reps=5)
+    # over the ranks the reads' own ranges cover: the tilted recurrence
+    # (its stored D unclamped: one operation less), the scan, the end test
+    # at the ranks that may end, and the graph's mean count of further
+    # predecessor rows; in: each read's row, its window starts and the rank
+    # tables over its range, and five words a read; out: three words a read
+    n = g_dg.n_nodes
+    P = int(g_dg.pred_slots.shape[1])
+    extra_preds = int(g_dg.pred_valid_np[:n, 1:].sum()) / n
+    may_end = int(end_ok[:n].sum()) / n
+    results["B8"].update(_bound(
+        4 * (q.numel() + ranks * (1 + 3 + 2 * P) + 8 * int(q.shape[0])),
+        ranks * Wb * (RECURRENCE_OPS - 1 + SCAN_OPS + PRED_OPS * extra_preds
+                      + SEED_END_OPS * may_end)))
+    results["B8"].update(reads_compared=int(q.shape[0]),
+                         whole_call_ms=full_ms)
+
+    _, args, kwargs = captured["B18"]
+    g_dg, qpad, wst, ar, aj, c, Wb = args[:7]
+    fs = args[7] if len(args) > 7 else kwargs.get("free_start", False)
+    if not fs:
+        raise AssertionError("8d: the path's trace ran without free_start")
+    # the plain version walks 50k ranks at about a millisecond each whatever
+    # the batch, and holds planes of its own: the first 8 reads of the call
+    keep8 = slice(0, 8)
+    inp = dict(qpad=qpad[keep8].contiguous(), wstarts=wst[keep8].contiguous(),
+               anchor_r=ar[keep8].contiguous(), anchor_j=aj[keep8].contiguous())
+    print(f"[trace] pangenome main path: {int(qpad.shape[0])} reads in the "
+          f"call, compared and timed on its first 8; LQ {int(qpad.shape[1])}"
+          f", Wb {Wb}, free_start {fs}, plan "
+          f"{tr.trace_plan(g_dg.window, Wb)}", flush=True)
+    results["B18"] = _compare(
+        "B18 free_start main path (first 8 reads)",
+        lambda: tr.trace_fill(g_dg, **inp, costs=c, Wb=Wb, free_start=True),
+        lambda: tr.trace_fill_plain(g_dg, **inp, costs=c, Wb=Wb,
+                                    free_start=True), card, reps=3)
+    results["B18"].update(fill_bound(
+        g_dg, 8, Wb, int(qpad.shape[1]), g_dg.n_nodes * Wb + 1, tilted=True,
+        per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8))
+    results["B18"]["reads_compared"] = 8
+    _phase_done("8d B7, B8, B18 free_start at the main path's shapes")
     return results, launches
 
 

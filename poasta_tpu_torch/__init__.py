@@ -3,17 +3,19 @@
 It carries the one-piece gap-affine read-mapping path on PyTorch tensors:
 scoring of global and ends-free spans (``BatchMapper.score_batch`` ->
 ``BandedScorer.scores`` -> the banded fills on shared or drifting windows,
-with the full-width fills as the ladder's last resort), alignment of
-global spans (``BatchMapper.align_batch``: dense tables and a host
-backtrace for small batches, else the device traceback) and the
-``lasagna`` CLI (``python -m poasta_tpu_torch.cli.lasagna``).  On a CUDA
-tensor the fills, the trace and its decode launch hand-written CUDA
-kernels (``csrc/``); on a CPU tensor they run their plain PyTorch
+with the full-width fills as the ladder's last resort), alignment
+(``BatchMapper.align_batch``; global spans: dense tables and a host
+backtrace for small batches, else the device traceback; ends-free spans:
+a fill that returns each read's end state, k-mer seeded corridors on
+large graphs or the full-width fill, then the traceback anchored there)
+and the ``lasagna`` CLI (``python -m poasta_tpu_torch.cli.lasagna``).  On
+a CUDA tensor the fills, the trace and its decode launch hand-written
+CUDA kernels (``csrc/``); on a CPU tensor they run their plain PyTorch
 versions.  Entry points use the card unless the caller names the CPU.
 
 The port imports torch, never jax, and nothing of the JAX package: it
 keeps its own copies of that package's jax-free modules (graphs, cost
-models, the exact engines, I/O), byte-equal to the originals, and
+models, the exact engines, seeding, I/O), byte-equal to the originals, and
 re-exports the pieces a caller needs to drive it.
 """
 

@@ -1,6 +1,7 @@
 """Dense wavefront fill: the static device graph, read packing, the
-full-fill scores (global and ends-free spans), and the dense tables + host
-backtrace of small batches.  Port of the one-piece, single-device part of
+full-fill scores (global and ends-free spans, the latter also with each
+read's end state), and the dense tables + host backtrace of small
+batches.  Port of the one-piece, single-device part of
 ``poasta_tpu/aligner/wavefront.py``.
 
 Ranks are the sequential axis, query offsets the lanes and reads the
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..graphs.flat import FlatGraph
-from ..ops.cuda_fill import bounded_scores, fill_scores
+from ..ops.cuda_fill import bounded_scores, bounded_with_ends, fill_scores
 from ..ops.dp_rows import INF, row_update
 from ..utils.device import resolve_device
 from .alignment import AlignedPair, Alignment
@@ -459,3 +460,49 @@ def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
         flat, aln_type, lengths, dg.n_nodes_padded)
     return bounded_scores(dg, qshift, lengths, costs, free_start, end_ok, jlo,
                           max_run=max_run)
+
+
+def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
+                                qshift: torch.Tensor, lengths: torch.Tensor,
+                                costs, aln_type: EndsFree, max_run: int = 0):
+    """(scores, end_ranks, end_offsets), each (B,) int32, for an ends-free
+    span by the full-width bounded fill.
+
+    The end state is each read's optimal permitted (rank, offset), the
+    anchor of the device traceback and of
+    ``NativeAligner.align_anchored``; ties go to the largest offset, then
+    the lowest rank.  ``max_run`` caps the insertion scan as in
+    :func:`dp_fill_scores_ends_free`.
+
+    On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
+    plain PyTorch version does.
+    """
+    if getattr(costs, "is_two_piece", False):
+        raise NotImplementedError("two-piece costs are not ported yet")
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, aln_type, lengths, dg.n_nodes_padded)
+    return bounded_with_ends(dg, qshift, lengths, costs, free_start, end_ok,
+                             jlo, max_run=max_run)
+
+
+def alignment_cost(graph, query: bytes, alignment: Alignment, costs) -> int:
+    """Recompute an alignment's one-piece gap-affine cost from its pairs (a
+    validation helper: under any span the cost of the returned pairs must
+    equal the returned score, free ends emitting no pairs)."""
+    if getattr(costs, "is_two_piece", False):
+        raise NotImplementedError("two-piece costs are not ported yet")
+    o, e = costs.gap_open, costs.gap_extend
+    total = 0
+    prev_state = "M"
+    for pair in alignment:
+        if pair.is_aligned():
+            total += 0 if graph.is_symbol_equal(pair.rpos, query[pair.qpos]) \
+                else costs.mismatch
+            prev_state = "M"
+        elif pair.is_insertion():  # graph node skipped: deletion state
+            total += (o + e) if prev_state != "D" else e
+            prev_state = "D"
+        else:  # query char unaligned: insertion state
+            total += (o + e) if prev_state != "I" else e
+            prev_state = "I"
+    return total

@@ -9,10 +9,13 @@ exits with an error when PyTorch sees none; ``--device cpu`` runs the same
 path with the kernels' plain PyTorch versions.  ``--engine exact`` runs
 the host A* engine per read.
 
-Ported: the global span, ``--engine wavefront|exact`` and the host-only
-round-robin ``--shard-index/--shard-count``.  ``-m semi-global|ends-free``,
-``--distributed`` and a ``--mesh`` other than ``auto``/``off``/``1`` exit
-with status 1.
+Ported: ``-m global|semi-global|ends-free`` (semi-global: the whole query
+against free graph ends, the read-mapping span; ends-free: every end
+free), ``--engine wavefront|exact`` and the host-only round-robin
+``--shard-index/--shard-count``.  ``--distributed`` and a ``--mesh`` other
+than ``auto``/``off``/``1`` exit with status 1.  Under a span other than
+global the exact engine runs the Dijkstra heuristic: the minimum-gap-cost
+heuristic is not admissible when ends are free.
 """
 
 from __future__ import annotations
@@ -28,12 +31,22 @@ NOT_PORTED = "not ported yet"
 
 def unported_option(args):
     """The message for an option this port does not carry yet, or None."""
-    if args.alignment_span != "global":
-        return f"-m {args.alignment_span}: {NOT_PORTED}"
     if args.distributed:
         return f"--distributed: {NOT_PORTED}"
     if args.mesh.strip().lower() not in ("auto", "off", "1"):
         return f"--mesh {args.mesh}: {NOT_PORTED} (one card: auto, off or 1)"
+    return None
+
+
+def span_of(name: str):
+    """The alignment span a ``-m`` value names: None for the global span,
+    else an ``EndsFree``."""
+    from ..aligner import UNBOUNDED, EndsFree, included
+
+    if name == "semi-global":
+        return EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    if name == "ends-free":
+        return EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED, UNBOUNDED)
     return None
 
 
@@ -96,10 +109,13 @@ def align_subcommand(args):
             rec.additional_fields.append(("AS", "i", str(score)))
             out.write(str(rec) + "\n")
 
+    aln_type = span_of(args.alignment_span)
     try:
         if args.engine == "exact":
             bubble_index = BubbleIndex(graph)
-            aligner = PoastaAligner(costs, Global(), heuristic="mingap")
+            aligner = PoastaAligner(
+                costs, aln_type if aln_type is not None else Global(),
+                heuristic="mingap" if aln_type is None else "dijkstra")
             for name, seq in reader:
                 res = aligner.align_with_existing_bubbles(graph, seq,
                                                           bubble_index)
@@ -110,7 +126,7 @@ def align_subcommand(args):
             print(f"INFO: device {device}, batch size {batch_size}",
                   file=sys.stderr)
         mapper = BatchMapper(graph, costs, device=device,
-                             batch_size=batch_size)
+                             batch_size=batch_size, aln_type=aln_type)
         # super-batches are sorted by read length before splitting into
         # device batches (shared windows pay for the length spread);
         # output is restored to input order
@@ -152,7 +168,7 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
     queries = [[chunk[i][1] for i in idxs] for idxs in batches]
     traced = backtraced = 0
 
-    pipeline = len(batches) > 1 and mapper.takes_banded_path(queries[0])
+    pipeline = len(batches) > 1 and mapper.supports_prescore(queries[0])
     with ThreadPoolExecutor(max_workers=1) as scorer_thread:
         fut = (scorer_thread.submit(mapper.prescore, queries[0])
                if pipeline else None)
@@ -172,11 +188,23 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
     if verbose:
         dt = time.perf_counter() - t0
         s = mapper.scorer.stats
-        print(f"INFO: aligned {len(chunk)} reads in {dt:.2f}s (device "
-              f"fills: {s['fills']}, cells: {s['cells_filled']}, tiers: "
-              f"{s['tiers']}; device traced {traced}, host backtraced "
-              f"{backtraced})", file=sys.stderr)
+        msg = (f"INFO: aligned {len(chunk)} reads in {dt:.2f}s (device "
+               f"fills: {s['fills']}, cells: {s['cells_filled']}, tiers: "
+               f"{s['tiers']}; device traced {traced}, host backtraced "
+               f"{backtraced})")
         mapper.scorer.reset_stats()
+        ef = mapper.last_ends_free_stats
+        if ef:
+            msg += (f" [anchored path: device {ef['device_s']:.2f}s,"
+                    f" host {ef['host_s']:.2f}s,"
+                    f" ok {ef['anchored_ok']},"
+                    f" exact-fallback {ef['exact_fallback']}]")
+        sd = mapper.last_seed_stats
+        if sd:
+            msg += (f" [seeded corridors: {sd['seeded']} seeded,"
+                    f" {sd['seed_tail']} tail, k={sd['seed_k']},"
+                    f" attempts {sd.get('seed_attempts', 1)}]")
+        print(msg, file=sys.stderr)
 
 
 def build_parser():

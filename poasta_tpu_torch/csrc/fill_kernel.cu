@@ -2,14 +2,19 @@
 // (every offset of every rank): one kernel template for the global span
 // (B2) and for ends-free spans (B4: a free graph begin where the span has
 // one, a capped insertion scan, and a running min of the Match row over the
-// ranks that may end the alignment).
+// ranks that may end the alignment; B7: beside that row, the first rank that
+// reached each of its values, which anchors the traceback).
 //
 // Replaces, in poasta_tpu/ops/pallas_fill.py:
-//   BOUNDED == false  _fill_kernel with free_start = free_end = False
-//                     (_pallas_exec / pallas_fill_scores)
-//   BOUNDED == true   _fill_kernel_bounded
-//                     (_pallas_exec_bounded / pallas_fill_scores_bounded)
-// Same inputs, same end row or best row, bit for bit.
+//   BOUNDED == false         _fill_kernel with free_start = free_end = False
+//                            (_pallas_exec / pallas_fill_scores)
+//   BOUNDED == true          _fill_kernel_bounded
+//                            (_pallas_exec_bounded / pallas_fill_scores_bounded)
+//   BOUNDED and ENDS == true _fill_kernel_bounded_ends and its streamed twin
+//                            _fill_kernel_bounded_big_ends
+//                            (pallas_bounded_with_ends[_big]): the rank tables
+//                            are read from global memory at any graph size
+// Same inputs, same end row, best row or rank row, bit for bit.
 //
 // Recurrence, per read and per topological rank r, over the offsets
 // j = 0 .. L-1 (untilted):
@@ -22,7 +27,9 @@
 //          fill scans the whole row, the bounded one `cap` lanes (the capped
 //          ladder's insertion-run bound)
 //   M    = min(A, I)
-//   best = min(best, M) at every rank r with end_ok[r] == 1 (bounded)
+//   best = min(best, M) at every rank r with end_ok[r] == 1 (bounded);
+//          with ENDS, rank(j) = r wherever M < best: strictly, so the first
+//          rank to reach a value keeps it; rank starts at 0
 // At the end rank M = min_pm and the stored D is INF.  The global fill
 // writes min_pm out there as the read's end row, which the caller reads at
 // each read's length; the bounded fill writes `best` out after the last
@@ -38,16 +45,19 @@
 // rows (and best, the sixth) stay in shared memory (100 KB at L = 5120)
 // while the rings, 2*W*L int32 (205 KB per read at W = 5), move to a
 // per-block global-memory slab when rows and rings together pass the
-// 227 KB opt-in limit, by common.cuh's rule.  These fills are the ladders'
-// last resort; the banded kernel carries the main path.
+// 227 KB opt-in limit, by common.cuh's rule (with the rank row, seven rows:
+// 143 KB at L = 5120, so the rings of a 5 kb batch are always global).  B2
+// and B4 are the ladders' last resort; B7 scores the first batch of a
+// semi-global read stream, before the seeded corridor fill takes over.
 #include "common.cuh"
 #include "prefix_min.cuh"
 
-static inline long long fill_row_ints(int bounded, int L) {
-    return (long long)(POASTA_ROWS + (bounded ? 1 : 0)) * L;
+// variant: 0 global (B2), 1 bounded (B4), 2 bounded with end ranks (B7)
+static inline long long fill_row_ints(int variant, int L) {
+    return (long long)(POASTA_ROWS + variant) * L;
 }
 
-template <bool BOUNDED>
+template <bool BOUNDED, bool ENDS>
 __global__ void full_fill_kernel(
     const int* __restrict__ symbols,     // (Np,)
     const int* __restrict__ pred_slots,  // (Np*P,)
@@ -58,13 +68,15 @@ __global__ void full_fill_kernel(
     int L, int n_nodes, int end_rank, int W, int P, int o, int e, int x,
     int cap, int free_start,
     int* __restrict__ out_rows,          // (B, L): end rows, or best rows
+    int* __restrict__ out_ranks,         // (B, L): first rank at best (ENDS)
     int* gws, long long global_ints, int mode) {
     extern __shared__ int smem[];
     int* rows;
     int* mring;
     poasta_workspace(mode, smem, gws, global_ints,
-                     (long long)(POASTA_ROWS + (BOUNDED ? 1 : 0)) * L, &rows,
-                     &mring);
+                     (long long)(POASTA_ROWS + (BOUNDED ? 1 : 0)
+                                 + (ENDS ? 1 : 0)) * L,
+                     &rows, &mring);
     const long long ring_ints = (long long)W * L;
     int* dring = mring + ring_ints;
     int* pm_row = rows;
@@ -73,6 +85,7 @@ __global__ void full_fill_kernel(
     int* s0 = rows + 3 * L;
     int* s1 = rows + 4 * L;
     int* best = rows + 5 * L;
+    int* bestr = rows + 6 * L;
     const int* q = qshift + (long long)blockIdx.x * L;
     int* out = out_rows + (long long)blockIdx.x * L;
 
@@ -81,6 +94,8 @@ __global__ void full_fill_kernel(
     if (BOUNDED)
         for (int j = threadIdx.x; j < L; j += blockDim.x)
             best[j] = POASTA_INF;
+    if (ENDS)
+        for (int j = threadIdx.x; j < L; j += blockDim.x) bestr[j] = 0;
     __syncthreads();
 
     for (int r = 0; r < n_nodes; ++r) {
@@ -133,19 +148,30 @@ __global__ void full_fill_kernel(
             }
             mring[wbase + j] = m;
             dring[wbase + j] = d;
-            if (permitted) best[j] = min(best[j], m);
+            if (ENDS) {
+                if (permitted && m < best[j]) {
+                    best[j] = m;
+                    bestr[j] = r;
+                }
+            } else if (permitted) {
+                best[j] = min(best[j], m);
+            }
         }
         __syncthreads();
     }
     if (BOUNDED)
         for (int j = threadIdx.x; j < L; j += blockDim.x) out[j] = best[j];
+    if (ENDS) {
+        int* outr = out_ranks + (long long)blockIdx.x * L;
+        for (int j = threadIdx.x; j < L; j += blockDim.x) outr[j] = bestr[j];
+    }
 }
 
-extern "C" int poasta_fill_plan(int bounded, int W, int L, int* threads,
+extern "C" int poasta_fill_plan(int variant, int W, int L, int* threads,
                                 int* mode, int* smem_bytes,
                                 long long* global_ints) {
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(L, fill_row_ints(bounded, L), 2LL * W * L,
+    cudaError_t err = poasta_plan(L, fill_row_ints(variant, L), 2LL * W * L,
                                   &plan);
     if (err != cudaSuccess) return (int)err;
     *threads = plan.threads;
@@ -155,30 +181,30 @@ extern "C" int poasta_fill_plan(int bounded, int W, int L, int* threads,
     return 0;
 }
 
-// `bounded` = 0: the global fill (end_ok may be null; cap and free_start
-// are not read); 1: the ends-free fill.
+// `variant` = 0: the global fill (end_ok may be null; cap and free_start
+// are not read); 1: the ends-free fill; 2: the ends-free fill that also
+// writes `out_ranks`.
 extern "C" int poasta_full_fill(
-    int bounded, const int* symbols, const int* pred_slots,
+    int variant, const int* symbols, const int* pred_slots,
     const int* pred_valid, const int* wslots, const int* end_ok,
     const int* qshift, int B, int L, int n_nodes, int end_rank, int W, int P,
-    int o, int e, int x, int cap, int free_start, int* out_rows, int* gws,
-    long long gws_ints, void* stream) {
+    int o, int e, int x, int cap, int free_start, int* out_rows,
+    int* out_ranks, int* gws, long long gws_ints, void* stream) {
+    if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(L, fill_row_ints(bounded, L), 2LL * W * L,
+    cudaError_t err = poasta_plan(L, fill_row_ints(variant, L), 2LL * W * L,
                                   &plan);
     if (err != cudaSuccess) return (int)err;
     if (gws_ints < plan.global_ints * (long long)B)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (bounded)
-        return (int)poasta_launch(full_fill_kernel<true>, B, plan, st, symbols,
-                                  pred_slots, pred_valid, wslots, end_ok,
-                                  qshift, L, n_nodes, end_rank, W, P, o, e, x,
-                                  cap, free_start, out_rows, gws,
-                                  plan.global_ints, plan.mode);
-    return (int)poasta_launch(full_fill_kernel<false>, B, plan, st, symbols,
-                              pred_slots, pred_valid, wslots, end_ok, qshift,
-                              L, n_nodes, end_rank, W, P, o, e, x, cap,
-                              free_start, out_rows, gws, plan.global_ints,
-                              plan.mode);
+#define POASTA_FULL_FILL(BOUNDED, ENDS)                                        \
+    (int)poasta_launch(full_fill_kernel<BOUNDED, ENDS>, B, plan, st, symbols,  \
+                       pred_slots, pred_valid, wslots, end_ok, qshift, L,      \
+                       n_nodes, end_rank, W, P, o, e, x, cap, free_start,      \
+                       out_rows, out_ranks, gws, plan.global_ints, plan.mode)
+    if (variant == 2) return POASTA_FULL_FILL(true, true);
+    if (variant == 1) return POASTA_FULL_FILL(true, false);
+    return POASTA_FULL_FILL(false, false);
+#undef POASTA_FULL_FILL
 }

@@ -18,15 +18,20 @@
 //             where it attains D
 //   diag    = pm(lane - 1) + (q[w + lane] == sym ? -e : x - e), INF at
 //             lane 0; q reads 0 past the padded row
-//   A       = min(diag, D), and min(A, 0) at (rank 0, j = 0)
+//   A       = min(diag, D), and min(A, 0) at j = 0 of an origin rank: rank 0
+//             or, with `free_start` (a free graph begin), every rank but
+//             the end rank
 //   I       = min(prefix_min(A)(lane - 1) + o, INF), over the whole window
 //   M       = min(A, I)
 // and the pointer word (layout pallas_trace.py:67-73):
-//   msrc = M == diag ? 0 : M == D ? 1 : 2; 3 at the origin (r 0, j 0, M 0)
+//   msrc = M == diag ? 0 : M == D ? 1 : 2; 3 at the origin (an origin
+//   rank, j 0, M 0)
 //   isrc = I == M(lane - 1 mod Wb) + o ? 0 : 1  (the lane roll wraps)
 //   diag column = pmidx(lane - 1 mod Wb); at the end rank msrc = 0 and the
 //   column is pmidx(lane), M_final = pm and the stored D is INF.
-// The anchor value is min(INF, M_final + e*j) at (anchor rank, anchor j).
+// The anchor value is min(INF, M_final + e*j) at the read's own (anchor
+// rank, anchor j): the end rank at the read's length for a global span, the
+// end state the scoring fill found for an ends-free one.
 //
 // What bounds it on the H100: as in the banded fill, a read's ranks are a
 // sequential chain, so one block walks them with 3 + log2(Wb) barriers per
@@ -71,7 +76,7 @@ __global__ void trace_fill_kernel(
     const int* __restrict__ anchor_r,    // (B,)
     const int* __restrict__ anchor_j,    // (B,)
     int B, int LQ, int Np, int n_nodes, int end_rank, int W, int P, int Wb,
-    int o, int e, int x,
+    int o, int e, int x, int free_start,
     int* __restrict__ ptr,               // (Np, B, Wb) pointer planes
     int* __restrict__ aval,              // (B,)
     int* gws, long long global_ints, int mode) {
@@ -107,6 +112,7 @@ __global__ void trace_fill_kernel(
         const int w_r = ws[r];
         const int* ps = pred_slots + (long long)r * P;
         const int* pv = pred_valid + (long long)r * P;
+        const bool origin = free_start ? r != end_rank : r == 0;
 
         // gather: p = 0 is unconditional (rank 0 reads an all-INF row)
         for (int i = threadIdx.x; i < Wb; i += blockDim.x) {
@@ -145,7 +151,7 @@ __global__ void trace_fill_kernel(
             const int qc = jq < LQ ? q[jq] : 0;
             const int src = i >= 1 ? pm_row[i - 1] : POASTA_INF;
             int a = min(src + (qc == sym ? -e : x - e), d_row[i]);
-            if (r == 0 && jq == 0) a = min(a, 0);
+            if (origin && jq == 0) a = min(a, 0);
             a_row[i] = a;
             s0[i] = a;
         }
@@ -169,7 +175,7 @@ __global__ void trace_fill_kernel(
                                    POASTA_INF);
             const int M_prev = min(a_row[im1], I_prev);
             int msrc = M == diag ? 0 : (M == D ? 1 : 2);
-            if (r == 0 && jq == 0 && M == 0) msrc = 3;
+            if (origin && jq == 0 && M == 0) msrc = 3;
             const int isrc = I == M_prev + o ? 0 : 1;
             int didx, m_final, d_store;
             if (is_end) {
@@ -252,7 +258,8 @@ extern "C" int poasta_trace_fill(
     const int* wslots, const int* qpad, const int* wstarts,
     const int* anchor_r, const int* anchor_j, int B, int LQ, int Np,
     int n_nodes, int end_rank, int W, int P, int Wb, int o, int e, int x,
-    int* ptr, int* aval, int* gws, long long gws_ints, void* stream) {
+    int free_start, int* ptr, int* aval, int* gws, long long gws_ints,
+    void* stream) {
     PoastaPlan plan;
     cudaError_t err = poasta_plan(Wb, trace_row_ints(W, Wb),
                                   trace_ring_ints(W, Wb), &plan);
@@ -262,7 +269,8 @@ extern "C" int poasta_trace_fill(
     return (int)poasta_launch(trace_fill_kernel, B, plan, (cudaStream_t)stream,
                               symbols, pred_slots, pred_valid, wslots, qpad,
                               wstarts, anchor_r, anchor_j, B, LQ, Np, n_nodes,
-                              end_rank, W, P, Wb, o, e, x, ptr, aval, gws,
+                              end_rank, W, P, Wb, o, e, x, free_start, ptr,
+                              aval, gws,
                               plan.global_ints, plan.mode);
 }
 

@@ -11,6 +11,8 @@ Port of ``poasta_tpu/ops/pallas_fill.py``.  TPU kernel -> wrapper here
 * B5 ``_banded_kernel_ef`` -> ``ef_best_rows`` (banded_kernel.cu)
 * B6 ``_banded_kernel_drift_ef`` -> ``drift_ef_best_rows``
   (banded_kernel.cu)
+* B7 ``_fill_kernel_bounded_ends`` (and its streamed twin B10) ->
+  ``bounded_end_rows`` (fill_kernel.cu)
 
 ``banded_kernel.cu`` and ``fill_kernel.cu`` each hold one kernel template;
 the variants are its compile-time instantiations.
@@ -87,9 +89,10 @@ def fill_plan(W: int, L: int) -> dict:
     return _plan("poasta_fill_plan", 0, W, L)
 
 
-def bounded_plan(W: int, L: int) -> dict:
-    """Launch shape and placement of the bounded full-fill kernel (B4)."""
-    return _plan("poasta_fill_plan", 1, W, L)
+def bounded_plan(W: int, L: int, ends: bool = False) -> dict:
+    """Launch shape and placement of the bounded full-fill kernel (B4), or
+    with ``ends`` of the one that also keeps the end ranks (B7)."""
+    return _plan("poasta_fill_plan", 2 if ends else 1, W, L)
 
 
 def variant_plan(variant: int, W: int, width: int, margin: int,
@@ -380,14 +383,20 @@ def _untilt_at(rows, idx, lengths, e: int) -> torch.Tensor:
     return torch.where(in_range, at, INF).to(torch.int32)
 
 
-def _windowed_min(rows, lengths, jlo) -> torch.Tensor:
-    """(B,) min of each (un-tilted, positional) row over its read's
-    permitted end offsets [jlo, n]; INF for an empty window."""
+def _end_window(rows, lengths, jlo) -> torch.Tensor:
+    """``rows`` with every lane outside its read's permitted end offsets
+    [jlo, n] set to INF."""
     col = torch.arange(rows.shape[1], dtype=torch.int32,
                        device=rows.device).view(1, -1)
     win = (col >= jlo.to(torch.int32).view(-1, 1)) \
         & (col <= lengths.to(torch.int32).view(-1, 1))
-    return torch.where(win, rows, INF).min(dim=1).values.to(torch.int32)
+    return torch.where(win, rows, INF)
+
+
+def _windowed_min(rows, lengths, jlo) -> torch.Tensor:
+    """(B,) min of each (un-tilted, positional) row over its read's
+    permitted end offsets [jlo, n]; INF for an empty window."""
+    return _end_window(rows, lengths, jlo).min(dim=1).values.to(torch.int32)
 
 
 # ---- B1: shared windows, global span -------------------------------------
@@ -604,15 +613,17 @@ def drift_ef_scores_plain(dg, qpad, lengths, costs, prep: dict, n_min: int,
 
 
 # --------------------------------------------------------------------------
-# Full-width fills: one plain rank loop for B2 and B4
+# Full-width fills: one plain rank loop for B2, B4 and B7
 # --------------------------------------------------------------------------
 
 def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
-                end_ok=None, max_run: int = 0) -> torch.Tensor:
+                end_ok=None, max_run: int = 0, ends: bool = False):
     """The full-width kernels' plain version (untilted).  With ``end_ok``
     (Np,): the running min of M over the permitted ranks instead of the
     end rank's row, a free graph begin seeding j = 0 at every rank but the
-    end rank, and the insertion scan truncated to ``max_run`` lanes."""
+    end rank, and the insertion scan truncated to ``max_run`` lanes.  With
+    ``ends``: (best, ranks), ranks (B, L) holding the first rank that
+    reached each best value (0 where none did)."""
     o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
     B, L = qshift.shape
     dev = qshift.device
@@ -629,6 +640,7 @@ def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
     if end_ok is not None:
         permitted = end_ok.tolist()
         best = torch.full((B, L), INF, dtype=torch.int32, device=dev)
+        bestr = torch.zeros((B, L), dtype=torch.int32, device=dev)
     end_row = None
     for r in range(dg.n_nodes):
         # p = 0 is unconditional (rank 0 reads an all-INF row)
@@ -655,7 +667,11 @@ def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
         m_ring[wslots[r]] = M
         d_ring[wslots[r]] = D
         if best is not None and permitted[r] == 1:
+            if ends:
+                bestr = torch.where(M < best, r, bestr).to(torch.int32)
             best = torch.minimum(best, M)
+    if ends:
+        return best, bestr
     return end_row if best is None else best
 
 
@@ -672,14 +688,17 @@ def fill_end_rows_plain(dg, qshift: torch.Tensor, costs) -> torch.Tensor:
 
 
 def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
-                      end_ok=None, max_run=0) -> torch.Tensor:
+                      end_ok=None, max_run=0, ends=False):
     """Launch csrc/fill_kernel.cu on (B, L) query rows: the global fill, or
-    with ``end_ok`` the bounded one; returns its (B, L) rows and counts the
-    launch on ``wrapper``."""
+    with ``end_ok`` the bounded one; returns its (B, L) rows (with ``ends``
+    the pair (best rows, end ranks)) and counts the launch on ``wrapper``."""
+    bounded = end_ok is not None
+    if ends and not bounded:
+        raise ValueError("end ranks need an ends-free span (end_ok)")
+    variant = 2 if ends else int(bounded)
     lib = build.load()
     dev = qshift.device
     B, L = qshift.shape
-    bounded = end_ok is not None
     operands = {"qshift": qshift, "symbols": dg.symbols,
                 "pred_slots": dg.pred_slots_flat,
                 "pred_valid": dg.pred_valid_flat,
@@ -688,24 +707,26 @@ def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
         operands["end_ok"] = end_ok
     _check_operands(dev, **operands)
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
+    ranks = torch.empty_like(out) if ends else None
     if B == 0:
-        return out
+        return (out, ranks) if ends else out
     with torch.cuda.device(dev):
-        plan = _plan("poasta_fill_plan", int(bounded), dg.window, L)
+        plan = _plan("poasta_fill_plan", variant, dg.window, L)
         gws = _workspace(plan, B, dev)
         code = lib.poasta_full_fill(
-            int(bounded), dg.symbols.data_ptr(),
+            variant, dg.symbols.data_ptr(),
             dg.pred_slots_flat.data_ptr(), dg.pred_valid_flat.data_ptr(),
             dg.write_slots.data_ptr(),
             end_ok.data_ptr() if bounded else None, qshift.data_ptr(), B, L,
             dg.n_nodes, dg.end_rank_i, dg.window,
             int(dg.pred_slots.shape[1]), costs.gap_open, costs.gap_extend,
             costs.mismatch, _scan_cap(L, max_run), int(free_start),
-            out.data_ptr(), gws.data_ptr(), gws.numel(),
+            out.data_ptr(), ranks.data_ptr() if ends else None,
+            gws.data_ptr(), gws.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "full fill kernel launch")
     wrapper.launches += 1
-    return out
+    return (out, ranks) if ends else out
 
 
 def _launch_fill(dg, qshift, costs):
@@ -776,3 +797,69 @@ def bounded_scores_plain(dg, qshift, lengths, costs, free_start: bool,
     return _windowed_min(
         bounded_best_rows_plain(dg, qshift, costs, free_start, end_ok,
                                 max_run), lengths, jlo)
+
+
+# ---- B7: ends-free span, with each read's end state ----------------------
+
+def bounded_end_rows_plain(dg, qshift: torch.Tensor, costs, free_start: bool,
+                           end_ok: torch.Tensor, max_run: int = 0):
+    """Plain version of the bounded full-fill kernel with end ranks: the
+    (B, L) untilted best row and, per lane, the first rank that reached it."""
+    return _fill_plain(dg, qshift, costs, free_start, end_ok, max_run,
+                       ends=True)
+
+
+def _launch_bounded_ends(dg, qshift, costs, free_start, end_ok, max_run):
+    return _launch_full_fill(bounded_end_rows, dg, qshift, costs, free_start,
+                             end_ok, max_run, ends=True)
+
+
+def bounded_end_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
+                     end_ok: torch.Tensor, max_run: int = 0):
+    """((B, L) best rows, (B, L) end ranks) of the full-width fill under an
+    ends-free span: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor.  ``max_run`` truncates the insertion scan (0: the whole row)."""
+    fn = _dispatch(_launch_bounded_ends, bounded_end_rows_plain, qshift,
+                   "bounded fill with end ranks")
+    return fn(dg, qshift, costs, free_start, end_ok, max_run)
+
+
+bounded_end_rows.launches = 0
+
+
+def windowed_argmin(rows, lengths, jlo):
+    """(score (B,), end offset (B,)) of (un-tilted, positional) rows over
+    each read's permitted end offsets [jlo, n]: the min and, among its
+    ties, the largest offset.  An empty window gives (INF, last lane)."""
+    masked = _end_window(rows, lengths, jlo)
+    score = masked.min(dim=1).values.to(torch.int32)
+    last = masked.shape[1] - 1
+    end_j = (last - torch.argmin(torch.flip(masked, [1]), dim=1)).to(
+        torch.int32)
+    return score, end_j
+
+
+def _with_ends_from(best, ranks, lengths, jlo):
+    score, end_j = windowed_argmin(best, lengths, jlo)
+    end_r = ranks.gather(1, end_j.long().view(-1, 1))[:, 0]
+    return score, end_r, end_j
+
+
+def bounded_with_ends(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
+                      free_start: bool, end_ok: torch.Tensor,
+                      jlo: torch.Tensor, max_run: int = 0):
+    """(scores, end ranks, end offsets), each (B,) int32, by the full-width
+    fill under an ends-free span.  Ties go to the largest offset, then to
+    the lowest rank.  Exact with ``max_run = 0``; under a cap the scores
+    are upper bounds, and a score the caller verifies against its bound
+    comes with the exact end state."""
+    best, ranks = bounded_end_rows(dg, qshift, costs, free_start, end_ok,
+                                   max_run)
+    return _with_ends_from(best, ranks, lengths, jlo)
+
+
+def bounded_with_ends_plain(dg, qshift, lengths, costs, free_start: bool,
+                            end_ok, jlo, max_run: int = 0):
+    best, ranks = bounded_end_rows_plain(dg, qshift, costs, free_start,
+                                         end_ok, max_run)
+    return _with_ends_from(best, ranks, lengths, jlo)

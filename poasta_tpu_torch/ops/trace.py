@@ -1,7 +1,10 @@
 """Device-side traceback: a pointer-emitting corridor refill and a decode.
 
-Port of ``poasta_tpu/ops/pallas_trace.py`` (global spans).  Given a batch
-of reads with certified exact scores:
+Port of ``poasta_tpu/ops/pallas_trace.py``: global spans (the anchor is the
+virtual end rank at the read's length) and ends-free spans (a per-read
+anchor, the end state the scoring fill found; with a free graph begin the
+origin lies at every rank but the end rank).  Given a batch of reads with
+certified exact scores:
 
 1. :func:`build_trace_schedule` derives, per read, a monotone 128-lane
    window-start schedule over the ranks that covers every cell a path of
@@ -79,7 +82,10 @@ def _schedule_body(dmin, dmax, lengths, k, aj, a_dmin, a_dmax, n_real: int,
                    Wb: int):
     """Per-read slope-limited 128-quantized window starts (int64 math).
 
-    Returns (steps (B, Np) bool, ok (B,) bool)."""
+    Returns (steps (B, Np) bool, ok (B,) bool, start (B, Np) int64: the
+    schedule's own window starts, and the corridor's rank range: r_lo,
+    r_hi (B,) int64, the first and last rank whose bounds are not empty,
+    and has (B,) bool, whether any rank's are)."""
     Np = dmin.shape[0]
     K = k.clamp(min=0).view(-1, 1)
     nb = lengths.view(-1, 1)
@@ -99,17 +105,23 @@ def _schedule_body(dmin, dmax, lengths, k, aj, a_dmin, a_dmax, n_real: int,
     viol = nonempty & ((start > lo.clamp(min=0)) | (start + Wb - 1 < hi))
     ok = ~viol.any(dim=1)
     prev = torch.cat([torch.zeros_like(start[:, :1]), start[:, :-1]], dim=1)
-    return (start - prev) > 0, ok
+    has = nonempty.any(dim=1)
+    seen = nonempty.to(torch.int8)
+    r_lo = torch.argmax(seen, dim=1)
+    r_hi = Np - 1 - torch.argmax(torch.flip(seen, [1]), dim=1)
+    return (start - prev) > 0, ok, start, r_lo, r_hi, has
 
 
 def build_trace_schedule(flat, lengths_np, k_np, Wb: int, Np: int,
-                         device=None):
-    """Per-read monotone 128-quantized window-start schedule for global
-    anchors (the virtual end rank at j = the read's length).
+                         device=None, anchor_r_np=None, anchor_j_np=None):
+    """Per-read monotone 128-quantized window-start schedule towards each
+    read's anchor: (``anchor_r_np``, ``anchor_j_np``), or by default the
+    global one (the virtual end rank at j = the read's length).
 
-    For any path of cost <= ub_b through rank r (min/max_dist_from_start
-    change by <= 1 / >= 1 per edge), the consumed offset j satisfies
-      n - (dmax[end] - dmax[r]) - K <= j <= n - (dmin[end] - dmin[r]) + K
+    For any path of cost <= ub_b through rank r that ends at the anchor
+    (ar, aj) (min/max_dist_from_start change by <= 1 / >= 1 per edge), the
+    consumed offset j satisfies
+      aj - (dmax[ar] - dmax[r]) - K <= j <= aj - (dmin[ar] - dmin[r]) + K
     with K = the gap budget ``k_np``.  Returns steps (B, Np) bool on
     ``device`` (None: the card) (the window steps 128 lanes at that rank)
     and host ok (B,) bool: False where width ``Wb`` provably cannot cover
@@ -123,11 +135,18 @@ def build_trace_schedule(flat, lengths_np, k_np, Wb: int, Np: int,
     def put(v):
         return torch.as_tensor(np.asarray(v, dtype=np.int64), device=device)
 
-    end_dmin = int(flat.min_dist_from_start[n - 1])
-    end_dmax = int(flat.max_dist_from_start[n - 1])
+    dmin, dmax = flat.min_dist_from_start, flat.max_dist_from_start
+    if anchor_r_np is None:
+        aj = lengths_np
+        a_dmin = np.full((B,), dmin[n - 1])
+        a_dmax = np.full((B,), dmax[n - 1])
+    else:
+        ar = np.asarray(anchor_r_np).astype(np.int64)
+        aj = anchor_j_np
+        a_dmin, a_dmax = dmin[ar], dmax[ar]
     steps, ok = _schedule_body(
-        dmin_d, dmax_d, put(lengths_np), put(k_np), put(lengths_np),
-        put(np.full((B,), end_dmin)), put(np.full((B,), end_dmax)), n, Wb)
+        dmin_d, dmax_d, put(lengths_np), put(k_np), put(aj), put(a_dmin),
+        put(a_dmax), n, Wb)[:2]
     return steps, ok.cpu().numpy()
 
 
@@ -135,7 +154,7 @@ def window_starts(steps: torch.Tensor) -> torch.Tensor:
     """(B, Np) int32 start of each rank's window as the fill walks it: the
     window moves at most one 128-lane step per rank.  The schedule's own
     starts, less the read's start at rank 0, which is 0 for every read that
-    can verify (rank 0's origin at j = 0 must lie in its window)."""
+    can verify (an origin at j = 0 must lie in its rank's window)."""
     return (torch.cumsum(steps.to(torch.int32), dim=1) * 128).to(torch.int32)
 
 
@@ -163,11 +182,14 @@ def _roll1(t: torch.Tensor) -> torch.Tensor:
 
 def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
                      anchor_r: torch.Tensor, anchor_j: torch.Tensor, costs,
-                     Wb: int):
+                     Wb: int, free_start: bool = False):
     """Plain PyTorch version of the trace kernel.
 
     ``qpad``: (B, LQ) packed reads, LQ >= Wb + 128 (lanes past LQ read as
     0).  ``wstarts``: (B, Np) window starts (:func:`window_starts`).
+    ``free_start``: the origin (a forced 0 at j = 0, and the pointer word
+    that stops the walk) lies at every rank but the end rank, not only at
+    rank 0.
     Returns (aval (B,) int32: min of the untilted M at the anchor cell, or
     INF; ptr (Np, B, Wb) int32 pointer planes, rows past the last rank 0).
 
@@ -233,7 +255,8 @@ def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
         diag_src = torch.cat([inf_col[:, :1], min_pm[:, :-1]], dim=1)
         diag = diag_src + torch.where(qcur == symbols[r], -e, x - e)
         A = torch.minimum(diag, D)
-        if r == 0:
+        origin = r != dg.end_rank_i if free_start else r == 0
+        if origin:
             A = torch.minimum(A, torch.where(j == 0, 0, INF))
 
         pref = _prefix_min(A, Wb)
@@ -243,7 +266,7 @@ def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
 
         msrc = torch.where(M == diag, MSRC_DIAG,
                            torch.where(M == D, MSRC_D, MSRC_I))
-        if r == 0:
+        if origin:
             msrc = torch.where((j == 0) & (M == 0), MSRC_ORIGIN, msrc)
         isrc = torch.where(I == _roll1(M) + o, 0, 1)
         if r == dg.end_rank_i:
@@ -268,7 +291,8 @@ def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
     return aval, ptr
 
 
-def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb):
+def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb,
+                  free_start=False):
     lib = build.load()
     dev = qpad.device
     B, LQ = qpad.shape
@@ -300,7 +324,7 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb):
             qpad.data_ptr(), wstarts.data_ptr(), anchor_r.data_ptr(),
             anchor_j.data_ptr(), B, LQ, Np, dg.n_nodes, dg.end_rank_i,
             dg.window, int(dg.pred_slots.shape[1]), Wb, costs.gap_open,
-            costs.gap_extend, costs.mismatch, ptr.data_ptr(),
+            costs.gap_extend, costs.mismatch, int(free_start), ptr.data_ptr(),
             aval.data_ptr(), gws.data_ptr(), gws.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "trace fill kernel launch")
@@ -310,15 +334,15 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb):
 
 def trace_fill(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
                anchor_r: torch.Tensor, anchor_j: torch.Tensor, costs,
-               Wb: int):
+               Wb: int, free_start: bool = False):
     """(aval (B,), ptr (Np, B, Wb)): the kernel on a CUDA tensor, the
     plain version on a CPU tensor (see :func:`trace_fill_plain`)."""
     if qpad.device.type == "cuda":
         return _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs,
-                             Wb)
+                             Wb, free_start)
     if qpad.device.type == "cpu":
         return trace_fill_plain(dg, qpad, wstarts, anchor_r, anchor_j, costs,
-                                Wb)
+                                Wb, free_start)
     raise ValueError(f"no trace fill for device {qpad.device}")
 
 
@@ -480,22 +504,28 @@ def pred_rank_table(dg, device) -> torch.Tensor:
     return torch.as_tensor(pr.reshape(-1), device=device)
 
 
-def tier_inputs(dg, flat, qshift, lengths_np, k_np, Wb: int):
+def tier_inputs(dg, flat, qshift, lengths_np, k_np, Wb: int,
+                anchor_r_np=None, anchor_j_np=None):
     """The trace fill's inputs for a batch at tier width ``Wb`` with gap
-    budgets ``k_np``: ({qpad, wstarts, anchor_r, anchor_j} on the batch's
-    device, host ok (B,))."""
+    budgets ``k_np`` and per-read anchors (default: the global anchor):
+    ({qpad, wstarts, anchor_r, anchor_j} on the batch's device, host ok
+    (B,))."""
     dev = qshift.device
     B, L = int(qshift.shape[0]), int(qshift.shape[1])
     steps, ok = build_trace_schedule(
-        flat, lengths_np, k_np, Wb, dg.n_nodes_padded, device=dev)
+        flat, lengths_np, k_np, Wb, dg.n_nodes_padded, device=dev,
+        anchor_r_np=anchor_r_np, anchor_j_np=anchor_j_np)
     LQ = max(L, Wb + 128)
+    if anchor_r_np is None:
+        anchor_r_np = np.full((B,), dg.end_rank_i)
+        anchor_j_np = lengths_np
     return {
         "qpad": torch.nn.functional.pad(qshift, (0, LQ - L)).contiguous(),
         "wstarts": window_starts(steps).contiguous(),
-        "anchor_r": torch.full((B,), dg.end_rank_i, dtype=torch.int32,
-                               device=dev),
+        "anchor_r": torch.as_tensor(
+            np.asarray(anchor_r_np, np.int32), device=dev),
         "anchor_j": torch.as_tensor(
-            np.asarray(lengths_np, np.int32), device=dev),
+            np.asarray(anchor_j_np, np.int32), device=dev),
     }, ok
 
 
@@ -521,10 +551,14 @@ def tier_bytes_per_read(dg, Wb: int) -> int:
                 + (2 * dg.window + TRACE_SCRATCH_ROWS) * Wb + dg.window)
 
 
-def trace_align(dg, flat, qshift, lengths, costs, scores):
-    """Batched device alignments inside score-certified corridors (global).
+def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
+                anchor_j=None, free_start: bool = False):
+    """Batched device alignments inside score-certified corridors.
 
-    ``scores``: (B,) the batch's verified exact scores.  Returns a list of
+    ``scores``: (B,) the batch's verified exact scores.  ``anchor_r`` /
+    ``anchor_j``: (B,) each read's end state (rank, offset) under an
+    ends-free span, ``free_start`` whether its graph begin is free; None
+    means the global anchor.  Returns a list of
     ``ArrayAlignment | None``; None marks reads no tier verified (anchor
     value != score), INF scores and empty reads, which the caller aligns
     on the host.  A verified read's pointer chain costs exactly its score.
@@ -542,6 +576,9 @@ def trace_align(dg, flat, qshift, lengths, costs, scores):
     dev = qshift.device
     lengths_np = lengths.cpu().numpy()
     scores_np = np.asarray(scores).astype(np.int64)
+    ar_np = None if anchor_r is None else np.asarray(anchor_r, np.int64)
+    aj_np = lengths_np if anchor_j is None \
+        else np.asarray(anchor_j, np.int64)
 
     out = [None] * B
     # INF scores (unalignable) and empty reads stay on the host path
@@ -562,12 +599,15 @@ def trace_align(dg, flat, qshift, lengths, costs, scores):
         for idx in np.array_split(np.arange(pending.size), n_sub):
             sub = pending[idx]
             q_sub = qshift.index_select(0, torch.as_tensor(sub, device=dev))
-            inp, ok = tier_inputs(dg, flat, q_sub, lengths_np[sub],
-                                  k_tier[idx], Wb)
+            inp, ok = tier_inputs(
+                dg, flat, q_sub, lengths_np[sub], k_tier[idx], Wb,
+                None if ar_np is None else ar_np[sub],
+                None if ar_np is None else aj_np[sub])
             if not ok.any():
                 still.extend(sub)  # this width covers nobody here
                 continue
-            aval, ptr = trace_fill(dg, **inp, costs=costs, Wb=Wb)
+            aval, ptr = trace_fill(dg, **inp, costs=costs, Wb=Wb,
+                                   free_start=free_start)
             verified = (aval.cpu().numpy() == scores_np[sub]) & ok
             if not verified.any():
                 still.extend(sub)
@@ -585,7 +625,7 @@ def trace_align(dg, flat, qshift, lengths, costs, scores):
             done_np = done.cpu().numpy()
             for i, b in enumerate(sub):
                 if verified[i] and done_np[i]:
-                    rpos, qpos = replay_steps(ops_np[i], int(lengths_np[b]),
+                    rpos, qpos = replay_steps(ops_np[i], int(aj_np[b]),
                                               flat.node_of_rank)
                     out[b] = ArrayAlignment(rpos, qpos)
                 else:

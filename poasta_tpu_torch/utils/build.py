@@ -108,14 +108,19 @@ def _load() -> ctypes.CDLL:
     lib.poasta_banded_fill.restype = i
     lib.poasta_fill_plan.argtypes = [i, i, i, pi, pi, pi, pll]
     lib.poasta_fill_plan.restype = i
-    lib.poasta_full_fill.argtypes = [i] + [p] * 6 + [i] * 11 + [p, p, ll, p]
+    lib.poasta_full_fill.argtypes = (
+        [i] + [p] * 6 + [i] * 11 + [p, p, p, ll, p])
     lib.poasta_full_fill.restype = i
     lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll]
     lib.poasta_trace_plan.restype = i
-    lib.poasta_trace_fill.argtypes = [p] * 8 + [i] * 11 + [p, p, p, ll, p]
+    lib.poasta_trace_fill.argtypes = [p] * 8 + [i] * 12 + [p, p, p, ll, p]
     lib.poasta_trace_fill.restype = i
     lib.poasta_trace_decode.argtypes = [p] * 6 + [i] * 6 + [p, p, p]
     lib.poasta_trace_decode.restype = i
+    lib.poasta_seed_plan.argtypes = [i, i, pi, pi, pi, pll]
+    lib.poasta_seed_plan.restype = i
+    lib.poasta_seed_fill.argtypes = [p] * 11 + [i] * 12 + [p, p, ll, p]
+    lib.poasta_seed_fill.restype = i
     lib.poasta_error_string.argtypes = [i]
     lib.poasta_error_string.restype = ctypes.c_char_p
     return lib

@@ -420,3 +420,169 @@ def test_ends_free_scores_on_card_match_exact_engine(card):
             exact = dp_fill_scores_ends_free(
                 mapper.dg, mapper.flat, q, lengths, COSTS, span)
             assert (got == exact.cpu().numpy()).all()
+
+
+# ---- ends-free alignment: B7, B8, the anchored trace ---------------------------
+
+def _backbone_case(seed, n, n_reads, read_len, div=0.015, skip_every=500):
+    """A linear graph of ``n`` bases with an edge v -> v+3 every
+    ``skip_every`` nodes (the bench's pangenome shape) and reads cut from
+    it."""
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(n))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
+    for v in range(0, n - 3, skip_every):
+        g.add_edge(v, v + 3, 0, 1)
+    g.post_process()
+    reads = []
+    for _ in range(n_reads):
+        a = rng.randrange(0, n - read_len)
+        reads.append(_mutate(rng, base[a:a + read_len], div).encode())
+    return g, reads
+
+
+@pytest.mark.parametrize("shape,max_run", [
+    ((1500, 64, 600), 0), ((1500, 64, 600), 32),
+    # past 21k ranks, where the reference switches to its streamed twin
+    ((22000, 16, 900), 0), ((22000, 16, 900), 64)])
+@pytest.mark.parametrize("span", [SEMI_GLOBAL, BOUNDED],
+                         ids=["semi-global", "bounded"])
+def test_bounded_ends_kernel_matches_plain(card, shape, max_run, span):
+    g, reads = _backbone_case(21, *shape)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, span, lengths, dg.n_nodes_padded)
+    before = cf.bounded_end_rows.launches
+    got = cf.bounded_end_rows(dg, q, COSTS, free_start, end_ok, max_run)
+    torch.cuda.synchronize()
+    assert cf.bounded_end_rows.launches == before + 1
+    want = cf.bounded_end_rows_plain(dg, q, COSTS, free_start, end_ok,
+                                     max_run)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the best row is the scoring fill's (B4)
+    assert torch.equal(got[0], cf.bounded_best_rows(dg, q, COSTS, free_start,
+                                                    end_ok, max_run))
+    triple = cf.bounded_with_ends(dg, q, lengths, COSTS, free_start, end_ok,
+                                  jlo, max_run)
+    plain = cf.bounded_with_ends_plain(dg, q, lengths, COSTS, free_start,
+                                       end_ok, jlo, max_run)
+    assert all(torch.equal(a, b) for a, b in zip(triple, plain))
+
+
+def _seed_call(card, shape, ub_rate):
+    """Inputs of one seeded corridor call on a backbone case: hits,
+    clusters and per-read bounds as the mapper makes them."""
+    from poasta_tpu_torch.aligner.seeds import KmerIndex, propose_clusters
+    from poasta_tpu_torch.aligner.wavefront import query_end_lo
+
+    g, reads = _backbone_case(23, *shape)
+    mapper = BatchMapper(g, COSTS, device=card, aln_type=SEMI_GLOBAL)
+    q, lengths = pack_queries(reads, device=card)
+    lens = np.array([len(r) for r in reads], np.int64)
+    free_start, end_ok, _ = mapper.scorer._ef_params(lengths)
+    idx = KmerIndex(mapper.flat)
+    hits = idx.seed_hits(q.cpu().numpy(), lens)
+    ub = (ub_rate * lens + 2 * COSTS.mismatch).astype(np.int64)
+    a_star, b_star, n_cluster = propose_clusters(hits, ub // COSTS.gap_extend)
+    assert (n_cluster > 0).all()
+    jlo = query_end_lo(SEMI_GLOBAL, lens).astype(np.int64)
+    return mapper, q, lens, free_start, end_ok, jlo, a_star, b_star, ub
+
+
+@pytest.mark.parametrize("shape,ub_rate", [
+    ((1500, 64, 600), 0.4), ((1500, 64, 600), 1.2),
+    ((22000, 16, 900), 0.4)])
+def test_seed_kernel_matches_plain(card, shape, ub_rate):
+    """B8 on each read's own rank range, and on one range shared by the
+    whole batch (as the reference's blocks share theirs)."""
+    from poasta_tpu_torch.ops import seed as sd
+
+    mapper, q, lens, fs, end_ok, jlo, a, b, ub = _seed_call(card, shape,
+                                                            ub_rate)
+    n = mapper.flat.n_nodes
+    shared = (np.zeros(len(lens), np.int64), np.full(len(lens), n, np.int64))
+    for ranges in (None, shared):
+        before = sd.seed_end_states.launches
+        got = sd.seed_scores(mapper.dg, mapper.flat, q, lens, COSTS, fs,
+                             end_ok, jlo, a, b, ub, ranges=ranges)
+        torch.cuda.synchronize()
+        assert sd.seed_end_states.launches == before + 1
+        want = sd.seed_scores_plain(mapper.dg, mapper.flat, q, lens, COSTS,
+                                    fs, end_ok, jlo, a, b, ub, ranges=ranges)
+        for g_arr, w_arr in zip(got, want):
+            assert np.array_equal(g_arr, w_arr)
+    exact = cf.bounded_with_ends(mapper.dg, q, torch.as_tensor(
+        lens, device=card), COSTS, fs, end_ok,
+        torch.as_tensor(jlo, device=card))
+    hit = got[3] & (got[0] <= ub)
+    assert hit.sum() >= len(lens) // 2
+    for g_arr, e_arr in zip(got[:3], exact):
+        assert np.array_equal(g_arr[hit], e_arr.cpu().numpy()[hit])
+
+
+@pytest.mark.parametrize("shape,Wb", [((1500, 64, 600), 256),
+                                      ((1500, 64, 600), 4096),
+                                      ((22000, 8, 900), 512)])
+def test_anchored_trace_kernel_matches_plain(card, shape, Wb):
+    """B18 with ``free_start`` and per-read anchors, and the decode over
+    its planes."""
+    g, reads = _backbone_case(25, *shape)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, SEMI_GLOBAL, lengths, dg.n_nodes_padded)
+    sc, er, ej = (t.cpu().numpy() for t in cf.bounded_with_ends(
+        dg, q, lengths, COSTS, free_start, end_ok, jlo))
+    k_tier, k_full = tr.gap_budgets(flat, sc, COSTS, Wb)
+    lens = lengths.cpu().numpy()
+    inp, ok = tr.tier_inputs(dg, flat, q, lens, k_tier, Wb, er, ej)
+    before = tr.trace_fill.launches
+    aval, ptr = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb, free_start=True)
+    torch.cuda.synchronize()
+    assert tr.trace_fill.launches == before + 1
+    aval_p, ptr_p = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
+                                        free_start=True)
+    assert torch.equal(aval, aval_p) and torch.equal(ptr, ptr_p)
+    verified = (aval.cpu().numpy() == sc) & ok
+    assert verified.sum() >= len(reads) // 2
+    t_max = int(-(-(int(lens.max()) + int(k_full.max()) + 8) // 512) * 512)
+    walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
+            inp["anchor_j"], dg.end_rank_i,
+            torch.as_tensor(verified, device=card), t_max)
+    ops, done = tr.trace_decode(ptr, *walk)
+    ops_p, done_p = tr.decode_plain(ptr, *walk)
+    assert torch.equal(ops, ops_p) and torch.equal(done, done_p)
+    assert bool(done[torch.as_tensor(verified, device=card)].all())
+
+
+def test_seeded_align_batch_matches_full_fill_route(card, monkeypatch):
+    """``align_batch`` under the semi-global span on a graph large enough
+    to seed by itself: the seeded batches equal the POASTA_SEED=0 route
+    (full fill every batch) and the POASTA_DEVICE_TRACE=0 route."""
+    from poasta_tpu_torch.ops import seed as sd
+
+    g, reads = _backbone_case(27, 9000, 32, 1200)
+    mapper = BatchMapper(g, COSTS, device=card, aln_type=SEMI_GLOBAL)
+    first = mapper.align_batch(reads)
+    before = (sd.seed_end_states.launches, tr.trace_fill.launches,
+              cf.bounded_end_rows.launches)
+    assert before[2] > 0 and mapper.last_seed_stats is None
+    got = mapper.align_batch(reads)
+    assert sd.seed_end_states.launches > before[0]
+    assert tr.trace_fill.launches > before[1]
+    assert mapper.last_seed_stats["seeded"] >= 24
+    assert mapper.last_ends_free_stats["exact_fallback"] == 0
+    pairs = [(s, list(a)) for s, a in got]
+    assert pairs == [(s, list(a)) for s, a in first]
+    monkeypatch.setenv("POASTA_DEVICE_TRACE", "0")
+    assert [(s, list(a)) for s, a in mapper.align_batch(reads)] == pairs
+    monkeypatch.delenv("POASTA_DEVICE_TRACE")
+    monkeypatch.setenv("POASTA_SEED", "0")
+    full = BatchMapper(g, COSTS, device=card, aln_type=SEMI_GLOBAL)
+    full.align_batch(reads)
+    assert [(s, list(a)) for s, a in full.align_batch(reads)] == pairs
+    assert full.last_seed_stats is None

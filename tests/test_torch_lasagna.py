@@ -1,10 +1,12 @@
 """The port's ``BatchMapper.align_batch`` and ``lasagna`` CLI on the CPU,
 against ``poasta_tpu``'s: scores and alignments equal, GAF byte-equal, on
 the dense route, the banded route (device traceback plus native host
-backtrace), the pipelined multi-batch path, ``--engine exact`` and shard
-part files.  Options the port does not carry yet exit 1.  The port runs
-on the CPU here because every call names it (``device="cpu"``,
-``--device cpu``); without that it takes the card or fails.
+backtrace), the pipelined multi-batch path, ``--engine exact``, shard
+part files, and ``-m semi-global|ends-free`` (seeded and not, pipelined
+and not; the JAX side then runs its Pallas kernels in interpret mode).
+Options the port does not carry yet exit 1.  The port runs on the CPU here
+because every call names it (``device="cpu"``, ``--device cpu``); without
+that it takes the card or fails.
 """
 
 import os
@@ -20,6 +22,7 @@ from poasta_tpu.aligner import GapAffine, Global, PoastaAligner
 from poasta_tpu.cli.lasagna import main as jax_lasagna
 from poasta_tpu.graphs import POAGraph
 from poasta_tpu.io.gfa import graph_to_gfa
+from poasta_tpu.ops.pallas_fill import set_interpret_mode
 from poasta_tpu.parallel import BatchMapper as JaxMapper
 from poasta_tpu_torch import BatchMapper
 from poasta_tpu_torch.cli.lasagna import main as port_lasagna
@@ -128,9 +131,112 @@ def test_cli_shard_parts_byte_equal(tmp_path):
                          "--shard-index", "3", "--shard-count", "3"]) == 1
 
 
+def _mapping_workload(seed=47, n=900, n_reads=8, read_len=300):
+    """A linear graph with skip edges (the pangenome configuration's shape)
+    and reads cut from it at 2%, one of them random."""
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(n))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
+    for v in range(0, n - 3, 97):
+        g.add_edge(v, v + 3, 0, 1)
+    g.post_process()
+    reads = []
+    for _ in range(n_reads):
+        a = rng.randrange(0, n - read_len)
+        reads.append(_mutate(rng, base[a:a + read_len - rng.randrange(40)],
+                             0.02).encode())
+    reads[2] = "".join(rng.choice("ACGT") for _ in range(200)).encode()
+    return g, reads
+
+
+@pytest.fixture
+def interpret_mode():
+    set_interpret_mode(True)
+    try:
+        yield
+    finally:
+        set_interpret_mode(False)
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["serial", "pipelined"])
+@pytest.mark.parametrize("seed_mode", ["all", "0"])
+@pytest.mark.parametrize("span", ["semi-global", "ends-free"])
+def test_cli_span_gaf_byte_equal(span, seed_mode, pipelined, tmp_path,
+                                 monkeypatch, interpret_mode, capsys):
+    """``-m semi-global`` and ``-m ends-free`` on two batches (the second
+    seeds under POASTA_SEED=all where the span can), with the scoring of a
+    batch overlapped with the alignment of the one before or not: GAF
+    byte-equal to the JAX package's CLI."""
+    from poasta_tpu_torch.parallel import mapper as tmapper
+
+    monkeypatch.setenv("POASTA_SEED", seed_mode)
+    monkeypatch.setenv("POASTA_SEED_DEBUG", "1")
+    if not pipelined:
+        # the pipeline gate of an ends-free span is a second core
+        monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    g, reads = _mapping_workload()
+    gfa, fa = _write_inputs(tmp_path, g, reads)
+    seeded = []
+    real = tmapper.BatchMapper._ends_free_scores
+
+    def rec(self, *args):
+        out = real(self, *args)
+        seeded.append(self.last_seed_stats)
+        return out
+
+    monkeypatch.setattr(tmapper.BatchMapper, "_ends_free_scores", rec)
+    out_j, out_p = tmp_path / "jax.gaf", tmp_path / "port.gaf"
+    extra = ["-m", span, "-j", "4"]
+    assert jax_lasagna(["align", gfa, fa, "--mesh", "off", "-o", str(out_j),
+                        *extra]) in (0, None)
+    assert port_lasagna(["align", gfa, fa, "-o", str(out_p), "--device",
+                         "cpu", "-v", *extra]) == 0
+    text = out_p.read_text()
+    assert len(text.splitlines()) == len(reads)
+    assert text == out_j.read_text()
+    err = capsys.readouterr().err
+    assert "[anchored path: device" in err and "exact-fallback 0]" in err
+    assert len(seeded) == 2
+    if span == "semi-global" and seed_mode == "all":
+        assert seeded[0] is None and seeded[1]["seeded"] >= 3
+        assert "[seeded corridors: " in err
+    else:
+        assert seeded == [None, None] and "[seeded corridors" not in err
+
+
+def test_cli_exact_engine_runs_dijkstra_under_free_ends(tmp_path):
+    """``--engine exact -m semi-global``: the reference's CLI runs the A*
+    engine under its minimum-gap-cost heuristic, which is not admissible
+    when ends are free, and reports 158 for a read whose optimum is 132.
+    The port's runs Dijkstra there, and agrees with its wavefront engine."""
+    rng = random.Random(0)
+    base = "".join(rng.choice("ACGT") for _ in range(160))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * 160)
+    read = _mutate(rng, base[30:110], 0.15).encode()
+    gfa, fa = _write_inputs(tmp_path, g, [read])
+
+    def score_of(main, *argv):
+        out = tmp_path / "out.gaf"
+        assert main(["align", gfa, fa, "-o", str(out), "-m", "semi-global",
+                     *argv]) in (0, None)
+        (tag,) = [f for f in out.read_text().split() if f.startswith("AS:i:")]
+        return int(tag[5:])
+
+    assert score_of(jax_lasagna, "--engine", "exact") == 158
+    assert score_of(port_lasagna, "--engine", "exact") == 132
+    assert score_of(port_lasagna, "--device", "cpu") == 132
+    # the global span keeps the reference's heuristic
+    out_j, out_p = tmp_path / "j.gaf", tmp_path / "p.gaf"
+    jax_lasagna(["align", gfa, fa, "-o", str(out_j), "--engine", "exact"])
+    assert port_lasagna(["align", gfa, fa, "-o", str(out_p), "--engine",
+                         "exact"]) == 0
+    assert out_p.read_text() == out_j.read_text()
+
+
 @pytest.mark.parametrize("argv", [
-    ["-m", "semi-global"],
-    ["-m", "ends-free"],
     ["--distributed"],
     ["--mesh", "2"],
     ["--mesh", "2,1"],
@@ -195,8 +301,9 @@ def test_lasagna_gaf_golden(tmp_path, reference_tests_dir):
 
 
 def test_batch_mapper_rejects_unported_spans():
-    """An ends-free span scores but does not align yet; a span object of
-    another package is refused by name, not guessed at."""
+    """An ends-free span scores and aligns; a span object of another
+    package is refused by name, not guessed at; two-piece costs are not
+    ported."""
     from poasta_tpu_torch import UNBOUNDED, EndsFree
     from poasta_tpu_torch import Global as PortGlobal
 
@@ -205,8 +312,11 @@ def test_batch_mapper_rejects_unported_spans():
                        aln_type=EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED,
                                          UNBOUNDED))
     assert np.all(semi.score_batch([b"ACGT"]) == 0)
+    assert [s for s, _ in semi.align_batch([b"ACGT"])] == [0]
+    from poasta_tpu_torch.aligner import GapAffine2Piece
+
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        semi.align_batch([b"ACGT"])
+        BatchMapper(g, GapAffine2Piece(4, 2, 6, 1, 20), device="cpu")
     with pytest.raises(TypeError):
         BatchMapper(g, COSTS, device="cpu", aln_type=Global())
     assert np.all(BatchMapper(g, COSTS, device="cpu", aln_type=PortGlobal()

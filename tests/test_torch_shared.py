@@ -57,12 +57,28 @@ def test_copy_is_byte_equal(rel):
         assert fh.read() == original, rel
 
 
+def test_seeds_copy_differs_in_one_docstring_line():
+    """``aligner/seeds.py`` (numpy, no JAX) is the original but for the
+    line of its docstring that points at the upstream A* source."""
+    def lines(pkg):
+        with open(os.path.join(REPO, pkg, "aligner", "seeds.py"), "rb") as fh:
+            return fh.read().split(b"\n")
+
+    original, copy = lines("poasta_tpu"), lines("poasta_tpu_torch")
+    assert len(original) == len(copy)
+    differ = [(a, b) for a, b in zip(original, copy) if a != b]
+    assert len(differ) == 1
+    assert all(b"src/aligner/astar.rs" in line for line in differ[0])
+    assert original.index(differ[0][0]) < 20  # inside the module docstring
+
+
 def test_port_imports_nothing_of_the_jax_package():
     """Importing the port and its CLI loads neither jax nor poasta_tpu, and
     no source line of the port or of its ``chip_*.py`` scripts imports
     them."""
     code = ("import sys, poasta_tpu_torch, poasta_tpu_torch.cli.lasagna, "
             "poasta_tpu_torch.convert, poasta_tpu_torch.ops.trace, "
+            "poasta_tpu_torch.ops.seed, poasta_tpu_torch.aligner.seeds, "
             "poasta_tpu_torch.utils.build; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'poasta_tpu'"
             " or m.startswith(('jax.', 'poasta_tpu.'))]; assert not bad, bad")
