@@ -19,8 +19,12 @@ CLI's semi-global span: one seeded ``align_batch`` of 64 reads (after one
 batch through the full fill and one seeded warm-up), then the CLI with
 ``-m semi-global`` on 256 reads, each with the host time of the seeding
 stages (k-mer hits, cluster proposals, the corridor fill, the
-certificate), the anchored trace and ``align_anchored``.  Needs one card;
-imports no JAX.
+certificate), the anchored trace and ``align_anchored``.  Then two-piece
+costs (``chip_smoke.py``'s phase 9, ``GapAffine2Piece(4, 2, 8, 1, 24)``):
+one uniform and one mixed-length ``score_batch`` batch, and the port's
+``poasta align --engine banded --device-assist on`` on phase 9e's 16
+sequences of 10 kb, with the host time of the native fill, the fusion and
+the background scoring.  Needs one card; imports no JAX.
 """
 
 import os
@@ -74,6 +78,7 @@ def main() -> int:
                     fragment_reads(seqs, N_READS, 2000, 4000), 1, card)
     profile_lasagna(graph, reads, card)
     profile_pangenome(dev, costs, semi, card)
+    profile_two_piece(dev, graph, reads, gsv, sv_reads, card)
     return 0
 
 
@@ -254,6 +259,65 @@ def profile_pangenome(dev, costs, semi, card):
     profile_lasagna(graph, reads, card, what="pangenome",
                     extra_argv=("-m", "semi-global"),
                     extra_plan=_seed_plan())
+
+
+def profile_two_piece(dev, graph, reads, gsv, sv_reads, card):
+    """Two-piece costs: one uniform and one mixed-length ``score_batch``,
+    then the MSA CLI with the device assist, its host wall by stage."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import COSTS_2P, msa_fasta
+    from poasta_tpu_torch import BatchMapper
+    from poasta_tpu_torch.aligner import GapAffine2Piece
+    from poasta_tpu_torch.aligner import fusion_assist as fa
+    from poasta_tpu_torch.cli.poasta import main as poasta_main
+    from poasta_tpu_torch.graphs import POAGraph
+    from poasta_tpu_torch.native import NativeAligner
+
+    costs = GapAffine2Piece(*COSTS_2P)
+    profile_batches("uniform two-piece",
+                    BatchMapper(graph, costs, device=dev), reads, 1, card)
+    profile_batches("mixed_len two-piece",
+                    BatchMapper(gsv, costs, device=dev), sv_reads, 1, card)
+    tmp = tempfile.mkdtemp(prefix="poasta_profile_msa_")
+    fasta = msa_fasta(tmp)
+    argv = ["align", "--engine", "banded", "--device-assist", "on", "-n",
+            "4", "-g", "8,24", "-e", "2,1", "-O", "fasta", "-o",
+            os.path.join(tmp, "msa.fa"), fasta]
+    plan = [(NativeAligner, "align_banded", "native align_banded (main)"),
+            (POAGraph, "add_alignment_with_weights", "fusion (main)"),
+            (fa.DeviceSeedPrefetcher, "prefetch", "prefetch: flatten (main)"),
+            (fa.DeviceSeedPrefetcher, "_score",
+             "device scoring (worker thread)")]
+    stats = []
+    real_close = fa.DeviceSeedPrefetcher.close
+
+    def rec_close(self):
+        real_close(self)
+        stats.append(dict(self.stats))
+
+    stages = {}
+    with ExitStack() as stack:
+        for owner, name, label in plan:
+            stack.enter_context(_timed(stages, owner, name, label))
+        stack.enter_context(mock.patch.object(fa.DeviceSeedPrefetcher,
+                                              "close", rec_close))
+        stack.enter_context(contextlib.redirect_stderr(io.StringIO()))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if poasta_main(argv) != 0:
+                raise RuntimeError("poasta align failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _report("poasta align --engine banded --device-assist on, 16 x 10 kb, "
+            "two-piece", prof, wall, f"prefetches {stats[-1]}", card)
+    _print_stages(plan, stages)
 
 
 if __name__ == "__main__":

@@ -51,7 +51,7 @@ each run with every launch counter zeroed just before and read just after:
 * 7b the same reads under the bench's bounded ends-free span
   (``EndsFree(UNBOUNDED, included(50), included(0), included(50))``): drift
   x ends-free (B6), against drift switched off and the exact full fill,
-  and two short reads against the exact A* engine;
+  and a short read against the exact A* engine;
 * 7c 1024 fragments of 2,000-4,000 bases cut from the uniform graph's four
   sequences (95% at 3%, 5% at 15%) under the CLI's semi-global span:
   ``score_batch`` on all of them (one exact full-width tier of the
@@ -60,8 +60,8 @@ each run with every launch counter zeroed just before and read just after:
   short fragments is again one exact full-width B5 tier; a quarter of long
   ones has a band narrower than the row, and what its one B5 tier does not
   verify takes the capped ladder over the bounded full fill B4; against
-  the plain path, the exact full fill, and the exact A* engine on short
-  fragments through the same mapper;
+  the plain path, the exact full fill, and the exact A* engine on a short
+  fragment through the same mapper;
 * 7d holds B3, B4, B5 and B6 against their plain versions at the inputs
   7a-7c gave them.
 
@@ -82,12 +82,37 @@ every batch is traced from its end states (B18 with ``free_start``):
   just after: every ``AS:i`` equals ``score_batch``'s, and the GAF is
   byte-equal to the runs with ``POASTA_DEVICE_TRACE=0`` and with
   ``POASTA_SEED=0`` (three routes, one answer);
-* 8c four reads of at most 300 bases on a 3,000-base graph of the same
+* 8c two reads of 150 and 300 bases on a 3,000-base graph of the same
   shape (seeding forced by ``POASTA_SEED=all``) under both CLI spans
   against the exact A* engine under Dijkstra;
 * 8d holds B7, B8 and B18 with ``free_start`` against their plain versions
   at the inputs 8b gave them (B8 and B18 on 8 reads of their calls: the
   plain versions take about a millisecond a rank whatever the batch).
+
+Phase 9 drives two-piece costs under the global span, the fifth main path,
+with ``GapAffine2Piece(4, 2, 8, 1, 24)`` (``poasta align -n 4 -g 8,24 -e
+2,1``), each run with every launch counter zeroed just before and read
+just after:
+
+* 9a ``BatchMapper.score_batch`` on the uniform configuration's 1024 reads
+  (one warm-up, five timed): the banded fill B16, against the plain path on
+  64 reads and the native engine on 16;
+* 9b the mixed-divergence traffic through ``BandedScorer.scores(...,
+  max_retries=1)``: one B16 tier, then the full-width fill B12 for the
+  reads it did not verify, against the plain path and the native engine;
+* 9c the mixed-length SV traffic through ``score_batch``: drifting windows
+  (B17), against drift switched off and the native engine;
+* 9d ``align_batch`` on 64 uniform reads: every read takes the native
+  backtrace (the trace kernel is one-piece); every alignment costs its
+  score, and every score equals ``score_batch``'s;
+* 9e the port's MSA CLI, ``python -m poasta_tpu_torch.cli.poasta align
+  --engine banded --device-assist on -n 4 -g 8,24 -e 2,1``, on 16
+  sequences of 10 kb (seed 23) at 3%, every fourth with a 1.5 kb deletion,
+  with ``-O fasta`` and ``-O gfa``: the bytes equal the ``--device-assist
+  off`` runs', and every score the assist handed over equals the native
+  engine's against the graph it was computed on;
+* 9f holds B12, B16 and B17 against their plain versions at the inputs
+  9a-9c gave them.
 
 The ``kernels`` line gives, for every kernel, its launches on the main
 paths, its time and its plain version's at the main path's shapes, and
@@ -105,6 +130,8 @@ Any failure raises.  The last line is one JSON object:
 Needs one card; imports no JAX.
 """
 
+import contextlib
+import io
 import json
 import os
 import random
@@ -140,6 +167,13 @@ B8_REPLACES = "poasta_tpu/ops/pallas_seed.py:48"
 PAN_LEN, PAN_READS, PAN_READ_LEN, PAN_SEED, PAN_DIV = (50000, 256, 5000, 17,
                                                        0.015)
 PAN_EDGE_EVERY, PAN_BATCH = 500, 64
+# the penalties of poasta align -n 4 -g 8,24 -e 2,1: GapAffine2Piece(
+# mismatch, gap_extend, gap_open, gap_extend2, gap_open2)
+COSTS_2P = (4, 2, 8, 1, 24)
+B12_REPLACES = "poasta_tpu/ops/pallas_fill.py:1837"
+B16_REPLACES = "poasta_tpu/ops/pallas_fill.py:3527"
+B17_REPLACES = "poasta_tpu/ops/pallas_fill.py:3330"
+MSA_SEQS, MSA_LEN, MSA_SEED, MSA_DIV, MSA_CUT = 16, 10000, 23, 0.03, 1500
 
 
 def _mutate(rng, s, d, target_len=None):
@@ -294,6 +328,13 @@ ENDS_OPS = 3
 # window test (two compares, an and), the candidate (un-tilt add, clamp) and
 # the ordered update (value compare, offset compare, and/or, three selects).
 SEED_END_OPS = 3 + 2 + 7
+# The two-piece recurrence (B12, B16, B17) per lane and rank: D1 (add, add,
+# min), D2 (min, add), the diagonal (compare-select, add), A (two mins), I
+# (add, clamp), M (min), the stored D1 and D2 clamps; its rows are untilted,
+# so fill_bound adds the scan's tilt and un-tilt (2).  Per predecessor row
+# after the first: a min each for M, D1 and D2.
+RECURRENCE_OPS_2P = 3 + 2 + 2 + 2 + 2 + 1 + 2
+PRED_OPS_2P = 3
 
 
 def fill_bound(dg, B, lanes, q_lanes, out_lanes, tilted,
@@ -322,6 +363,15 @@ def _phase_done(name):
     now = time.perf_counter()
     print(f"[time] {name}: {now - _PHASE_START[0]:.1f} s", flush=True)
     _PHASE_START[0] = now
+
+
+def _native_scores(na, reads, costs):
+    """``NativeAligner.align_banded`` scores of ``reads``, a thread a core
+    (the engine releases the interpreter lock; the mapper calls it so)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return list(pool.map(lambda r: na.align_banded(r, costs)[0], reads))
 
 
 def _time_ms(fn, reps):
@@ -563,14 +613,14 @@ def main() -> int:
     exact = na.align(reads[0], costs)[0]
     if exact != int(scores[0]):
         raise AssertionError(f"read 0: native {exact}, port {int(scores[0])}")
-    native64 = [na.align_banded(q, costs)[0] for q in reads[:64]]
+    native64 = _native_scores(na, reads[:64], costs)
     if list(map(int, scores[:64])) != native64:
         raise AssertionError("first 64 scores differ from the native "
                              "banded engine's")
     # 15% reads (every 20th) score far above the first tier's ub, so the
     # full fill scored them
     tail = list(range(0, 160, 20))
-    native_tail = [na.align_banded(mixed[i], costs)[0] for i in tail]
+    native_tail = _native_scores(na, [mixed[i] for i in tail], costs)
     if [int(mixed_scores[i]) for i in tail] != native_tail:
         raise AssertionError("mixed 15% reads differ from the native "
                              "banded engine's")
@@ -631,6 +681,9 @@ def main() -> int:
     # ---- 8. ends-free alignment on the pangenome configuration ------------
     pan_results, pan_launches = pangenome_phases(card, dev, costs)
 
+    # ---- 9. two-piece costs under the global span --------------------------
+    tp_results, tp_launches = two_piece_phases(card, dev, graph, reads, base)
+
     def by_call(name):
         """A fill kernel's launches in each main-path call that used it."""
         i = {"B1": 0, "B2": 1}.get(name)
@@ -684,6 +737,17 @@ def main() -> int:
          "replaces": B18_REPLACES, "launches": pan_launches["B18"],
          **pan_results["B18"]},
     ]
+    for name, kernel, source, replaces in (
+            ("B12", "full_fill_kernel<two-piece>", full, B12_REPLACES),
+            ("B16", "banded_kernel<two-piece>", banded, B16_REPLACES),
+            ("B17", "banded_kernel<drift, two-piece>", banded,
+             B17_REPLACES)):
+        calls = {call: n[name] for call, n in tp_launches.items() if n[name]}
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": f"poasta_tpu_torch/csrc/{source}",
+                        "replaces": replaces,
+                        "launches": sum(calls.values()),
+                        "launches_by_call": calls, **tp_results[name]})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} launched on no main path")
@@ -1082,7 +1146,7 @@ def ends_free_phases(card, dev, costs, graph, seqs):
         na = NativeAligner(gsv)
         sample = [0, 1, 2, 3, N_READS // 2, N_READS // 2 + 1, N_READS - 2,
                   N_READS - 1]
-        native = [na.align_banded(sv_reads[i], costs)[0] for i in sample]
+        native = _native_scores(na, [sv_reads[i] for i in sample], costs)
         if not ((sv_scores == sh_scores).all()
                 and (sv_scores == plain_sv).all()
                 and [int(sv_scores[i]) for i in sample] == native):
@@ -1122,9 +1186,9 @@ def ends_free_phases(card, dev, costs, graph, seqs):
                                  "the shared windows' or the exact full "
                                  "fill's")
         # an engine that shares nothing with the fills: the exact A* engine
-        # under Dijkstra (see 7c) on the tails of one read from each allele,
-        # short because it walks most of the graph per query base
-        tails = [sv_reads[0][-48:], sv_reads[1][-64:]]
+        # under Dijkstra (see 7c) on the tail of one read, short because it
+        # walks most of the graph per query base (one read: 11 s)
+        tails = [sv_reads[0][-48:]]
         engine = PoastaAligner(costs, bench_span, heuristic="dijkstra")
         t0 = time.perf_counter()
         want = [engine.align(gsv, r).score for r in tails]
@@ -1132,8 +1196,8 @@ def ends_free_phases(card, dev, costs, graph, seqs):
             raise AssertionError("7b: short reads differ from the exact "
                                  "engine's under the bounded span")
         print(f"[drift-ef] all {N_READS} scores equal with drift off and the "
-              f"exact bounded full fill's; the last 48 and 64 bases of reads "
-              f"0 and 1 equal the exact A* engine's {want} "
+              f"exact bounded full fill's; the last 48 bases of read 0 equal "
+              f"the exact A* engine's {want} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
         _phase_done("7b mixed_len bounded span")
@@ -1191,8 +1255,9 @@ def ends_free_phases(card, dev, costs, graph, seqs):
                                  "exact full fill's")
         # the exact A* engine needs the Dijkstra heuristic here (mingap is
         # not admissible when ends are free) and then takes minutes on a
-        # 3 kb fragment, so it checks short fragments through the same mapper
-        short = fragment_reads(seqs, 2, 100, 120)
+        # 3 kb fragment, so it checks a short fragment through the same
+        # mapper (18 s)
+        short = fragment_reads(seqs, 1, 100, 120)
         engine = PoastaAligner(costs, semi, heuristic="dijkstra")
         t0 = time.perf_counter()
         want = [engine.align(graph, r).score for r in short]
@@ -1201,7 +1266,7 @@ def ends_free_phases(card, dev, costs, graph, seqs):
                                  "engine's")
         print(f"[semi-global] all {N_READS} scores equal the exact bounded "
               f"full fill's and the plain path's ({secs:.1f} s, one cold "
-              f"call); 2 fragments of 100-120 bases equal the exact A* "
+              f"call); a fragment of 100-120 bases equals the exact A* "
               f"engine's {want} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
 
@@ -1470,7 +1535,7 @@ def pangenome_phases(card, dev, costs):
     rng = random.Random(PAN_SEED + 1)
     s_graph, s_base = backbone_graph(rng, 3000)
     short = []
-    for n in (150, 200, 250, 300):
+    for n in (150, 300):
         a = rng.randrange(0, 3000 - n)
         short.append(_mutate(rng, s_base[a:a + n], PAN_DIV).encode())
     t0 = time.perf_counter()
@@ -1489,7 +1554,7 @@ def pangenome_phases(card, dev, costs):
                     m.last_seed_stats and m.last_seed_stats["seeded"] > 0):
                 raise AssertionError(f"8c: short reads did not seed: "
                                      f"{m.last_seed_stats}")
-            print(f"[pangenome] 4 reads of 150-300 bases on a 3,000-base "
+            print(f"[pangenome] 2 reads of 150 and 300 bases on a 3,000-base "
                   f"graph, {name}: scores {got} equal the exact A* engine's "
                   f"under Dijkstra; seed stats {m.last_seed_stats}",
                   flush=True)
@@ -1585,6 +1650,352 @@ def pangenome_phases(card, dev, costs):
         per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8))
     results["B18"]["reads_compared"] = 8
     _phase_done("8d B7, B8, B18 free_start at the main path's shapes")
+    return results, launches
+
+
+def msa_fasta(directory):
+    """The MSA input of phase 9e: 16 sequences of 10 kb (seed 23) at 3%
+    divergence from one base, every fourth with a 1.5 kb deletion."""
+    rng = random.Random(MSA_SEED)
+    base = "".join(rng.choice("ACGT") for _ in range(MSA_LEN))
+    path = os.path.join(directory, "msa.fa")
+    with open(path, "w") as fh:
+        for i in range(MSA_SEQS):
+            s = _mutate(rng, base, MSA_DIV)
+            if i % 4 == 3:
+                a = rng.randrange(len(s) // 10, len(s) - MSA_CUT - len(s) // 10)
+                s = s[:a] + s[a + MSA_CUT:]
+            fh.write(f">seq{i}\n{s}\n")
+    return path
+
+
+def _lead_cost(aln, costs):
+    """The cost of the leading insertion run a backtrace does not emit as
+    pairs (the query prefix aligned against the virtual start node)."""
+    lead = next((p.qpos for p in aln if p.qpos is not None), 0)
+    return 0 if lead == 0 else (costs.gap_open + costs.gap_extend
+                                + (lead - 1) * min(costs.gap_extend,
+                                                   costs.gap_extend2))
+
+
+def two_piece_phases(card, dev, graph, reads, base):
+    """Phases 9a-9f; returns (kernel comparisons of B12, B16 and B17, their
+    launches per main-path call)."""
+    import tempfile
+
+    import torch
+
+    from poasta_tpu_torch import (
+        BatchMapper,
+        GapAffine,
+        NativeAligner,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import GapAffine2Piece
+    from poasta_tpu_torch.aligner import banded as banded_mod
+    from poasta_tpu_torch.aligner import fusion_assist as fa
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.cli.poasta import main as poasta_main
+    from poasta_tpu_torch.ops import cuda_fill as cf
+
+    costs = GapAffine2Piece(*COSTS_2P)
+    fills = {"B12": cf.fill_end_rows_2p, "B16": cf.banded_end_rows_2p,
+             "B17": cf.drift_end_rows_2p}
+    launches, captured, on_main_path = {}, {}, [False]
+
+    def keep(name, fn):
+        # the widest batch of the main-path calls (the last such call)
+        def rec(*args, **kwargs):
+            B = int(args[1].shape[0])
+            if on_main_path[0] and B >= captured.get(name, (0,))[0]:
+                captured[name] = (B, args, kwargs)
+            return fn(*args, **kwargs)
+        return rec
+
+    def zero():
+        for k in fills.values():
+            k.launches = 0
+        on_main_path[0] = True
+
+    def read(call):
+        on_main_path[0] = False
+        launches[call] = {name: k.launches for name, k in fills.items()}
+        return launches[call]
+
+    def plain_path(fn):
+        """``fn()`` with every two-piece fill replaced by its plain
+        version; fails if a kernel launches all the same."""
+        before = [k.launches for k in fills.values()]
+        with mock.patch.object(banded_mod, "banded_scores_2p",
+                               cf.banded_scores_2p_plain), \
+                mock.patch.object(banded_mod, "drift_scores_2p",
+                                  cf.drift_scores_2p_plain), \
+                mock.patch.object(wavefront_mod, "fill_scores_2p",
+                                  cf.fill_scores_2p_plain):
+            t0 = time.perf_counter()
+            out = fn()
+            secs = time.perf_counter() - t0
+        if [k.launches for k in fills.values()] != before:
+            raise AssertionError("the plain path launched a kernel")
+        return out, secs
+
+    recorders = [
+        mock.patch.object(banded_mod, "banded_scores_2p",
+                          keep("B16", cf.banded_scores_2p)),
+        mock.patch.object(banded_mod, "drift_scores_2p",
+                          keep("B17", cf.drift_scores_2p)),
+        mock.patch.object(wavefront_mod, "fill_scores_2p",
+                          keep("B12", cf.fill_scores_2p)),
+    ]
+    with ExitStack() as stack:
+        for patch in recorders:
+            stack.enter_context(patch)
+
+        # ---- 9a. score_batch, uniform traffic -------------------------------
+        m_u = BatchMapper(graph, costs, device=dev)
+        zero()
+        u_scores, el, raw = _timed_batches(m_u, reads, 5)
+        n9a = read("score_batch uniform two-piece")
+        print(f"[two-piece] uniform score_batch: {N_READS / el:.2f} reads/s "
+              f"(median {el * 1e3:.1f} ms, {raw / el:.4e} raw cells/s), ub "
+              f"hint {m_u.scorer._ub_hint}, last fill width "
+              f"{m_u.scorer._last_fill_width}, launches {n9a}  [{card}]",
+              flush=True)
+        if n9a["B16"] <= 0:
+            raise AssertionError(f"9a never launched B16: {n9a}")
+        plain64, secs = plain_path(
+            lambda: BatchMapper(graph, costs, device=dev).score_batch(
+                reads[:64]))
+        na = NativeAligner(graph)
+        sample = list(range(0, N_READS, N_READS // 16))
+        t0 = time.perf_counter()
+        native = _native_scores(na, [reads[i] for i in sample], costs)
+        if not ((plain64 == u_scores[:64]).all()
+                and [int(u_scores[i]) for i in sample] == native
+                and (u_scores < cf.INF).all()):
+            raise AssertionError("9a: two-piece scores differ from the plain "
+                                 "path's or the native engine's")
+        print(f"[two-piece] reads 0-63 equal the plain path's ({secs:.1f} s),"
+              f" reads {sample} NativeAligner.align_banded's "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        _phase_done("9a two-piece uniform")
+
+        # ---- 9b. mixed divergence, one banded tier then the full fill -------
+        mixed = mixed_reads(base)
+        qm, lm = pack_queries(mixed, device=dev)
+        m_mix = BatchMapper(graph, costs, device=dev)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mixed_scores = m_mix.scorer.scores(qm, lm, max_retries=1)
+        mixed_s = time.perf_counter() - t0
+        n9b = read("scores mixed max_retries=1 two-piece")
+        print(f"[two-piece] mixed, max_retries 1: {mixed_s * 1e3:.1f} ms, "
+              f"stats {m_mix.scorer.stats}, launches {n9b}  [{card}]",
+              flush=True)
+        if n9b["B12"] <= 0:
+            raise AssertionError(f"9b never launched B12: {n9b}")
+        plain_mix, secs = plain_path(
+            lambda: BatchMapper(graph, costs, device=dev).scorer.scores(
+                qm, lm, max_retries=1))
+        tail = list(range(0, min(160, N_READS), 20))
+        native = _native_scores(na, [mixed[i] for i in tail], costs)
+        if not ((plain_mix == mixed_scores).all()
+                and [int(mixed_scores[i]) for i in tail] == native):
+            raise AssertionError("9b: mixed scores differ from the plain "
+                                 "path's or the native engine's")
+        print(f"[two-piece] all {N_READS} mixed scores equal the plain path's"
+              f" ({secs:.1f} s); 15% reads {tail} equal "
+              "NativeAligner.align_banded's", flush=True)
+        _phase_done("9b two-piece mixed")
+
+        # ---- 9c. mixed lengths: drifting windows ----------------------------
+        gsv, sv_reads = sv_workload(GapAffine(4, 2, 6))
+        m_sv = BatchMapper(gsv, costs, device=dev)
+        zero()
+        sv_scores, el, raw = _timed_batches(m_sv, sv_reads, 3)
+        n9c = read("score_batch mixed_len two-piece")
+        off = BatchMapper(gsv, costs, device=dev)
+        off.scorer.DRIFT_MIN_SPREAD = 1 << 30
+        sh_scores, el_sh, raw_sh = _timed_batches(off, sv_reads, 1)
+        layouts = sorted((k[3], v[0])
+                         for k, v in m_sv.scorer._prep_cache.items()
+                         if k[0] == "drift" and v[0] is not None)
+        print(f"[two-piece] mixed_len score_batch: {N_READS / el:.2f} reads/s "
+              f"(median {el * 1e3:.1f} ms), drift off {N_READS / el_sh:.2f} "
+              f"reads/s ({el_sh * 1e3:.1f} ms); cells ratio "
+              f"{raw_sh / max(raw, 1):.2f}; drift layouts (ub, Wb) {layouts};"
+              f" launches {n9c}  [{card}]", flush=True)
+        if n9c["B17"] <= 0:
+            raise AssertionError(f"9c never launched B17: {n9c}")
+        na_sv = NativeAligner(gsv)
+        sv_sample = [0, 1, N_READS // 2, N_READS // 2 + 1, N_READS - 2,
+                     N_READS - 1]
+        native = _native_scores(na_sv, [sv_reads[i] for i in sv_sample],
+                                costs)
+        if not ((sv_scores == sh_scores).all()
+                and [int(sv_scores[i]) for i in sv_sample] == native):
+            raise AssertionError("9c: drift scores differ from drift off's "
+                                 "or the native engine's")
+        print(f"[two-piece] all {N_READS} mixed_len scores equal with drift "
+              f"off; reads {sv_sample} equal NativeAligner.align_banded's",
+              flush=True)
+
+        # ---- 9d. align_batch ------------------------------------------------
+        batch = reads[:64]
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m_u.align_batch(batch)
+        align_s = time.perf_counter() - t0
+        n9d = read("align_batch uniform two-piece")
+        if [s for s, _ in out] != [int(s) for s in u_scores[:64]]:
+            raise AssertionError("9d: align_batch scores differ from "
+                                 "score_batch's")
+        for r, (score, aln) in zip(batch, out):
+            cost = wavefront_mod.alignment_cost(graph, r, aln, costs)
+            if cost + _lead_cost(aln, costs) != score:
+                raise AssertionError(f"9d: an alignment costs {cost}, scored "
+                                     f"{score}")
+        print(f"[two-piece] align_batch(64 uniform reads): {align_s:.2f} s "
+              f"({64 / align_s:.2f} reads/s), {m_u.last_banded_stats}, "
+              f"launches {n9d}; every alignment costs its score  [{card}]",
+              flush=True)
+        _phase_done("9c-9d two-piece mixed_len, align_batch")
+
+        # ---- 9e. the port's poasta align: MSA with the device assist --------
+        tmp = tempfile.mkdtemp(prefix="poasta_smoke_msa_")
+        fasta = msa_fasta(tmp)
+        # every device score of the -O fasta run is kept with the native
+        # engine built on the graph it was computed on (a snapshot): taken
+        # or late, each must be exact
+        scored, snapshots, assist_stats, keep_graphs = [], {}, [], [True]
+        real_prefetch, real_score = (fa.DeviceSeedPrefetcher.prefetch,
+                                     fa.DeviceSeedPrefetcher._score)
+        real_close = fa.DeviceSeedPrefetcher.close
+
+        def rec_prefetch(self, g, seq):
+            if keep_graphs[0] and not (self._future is not None
+                                       and not self._future.done()):
+                snapshots[id(seq)] = NativeAligner(g)
+            return real_prefetch(self, g, seq)
+
+        def rec_score(self, flat, seq, hint):
+            score = real_score(self, flat, seq, hint)
+            if keep_graphs[0]:
+                scored.append((seq, score))
+            return score
+
+        def rec_close(self):
+            real_close(self)
+            assist_stats.append(dict(self.stats))
+
+        def msa(out_type, assist):
+            out_path = os.path.join(tmp, f"{assist}.{out_type}")
+            argv = ["align", "--engine", "banded", "--device-assist", assist,
+                    "-n", "4", "-g", "8,24", "-e", "2,1", "-O", out_type,
+                    "-o", out_path, fasta]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = poasta_main(argv)
+            secs = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"poasta {argv} exited {rc}")
+            with open(out_path, "rb") as fh:
+                return secs, fh.read()
+
+        walls = {}
+        with mock.patch.object(fa.DeviceSeedPrefetcher, "prefetch",
+                               rec_prefetch), \
+                mock.patch.object(fa.DeviceSeedPrefetcher, "_score",
+                                  rec_score), \
+                mock.patch.object(fa.DeviceSeedPrefetcher, "close",
+                                  rec_close):
+            for out_type in ("fasta", "gfa"):
+                zero()
+                walls[(out_type, "on")], on_bytes = msa(out_type, "on")
+                n9e = read(f"poasta align -O {out_type} assist on")
+                walls[(out_type, "off")], off_bytes = msa(out_type, "off")
+                keep_graphs[0] = False
+                if on_bytes != off_bytes:
+                    raise AssertionError(f"9e: -O {out_type} with the assist "
+                                         "differs from without")
+                on_s, off_s = walls[(out_type, "on")], walls[(out_type, "off")]
+                print(f"[msa] -O {out_type}: assist on {on_s:.2f} s, off "
+                      f"{off_s:.2f} s wall, bytes "
+                      f"equal ({len(on_bytes)} B); prefetches "
+                      f"{assist_stats[-1]}; launches {n9e}  [{card}]",
+                      flush=True)
+        if not scored or min(st["finished"] for st in assist_stats) <= 0:
+            raise AssertionError(f"9e: the assist scored nothing: "
+                                 f"{assist_stats}")
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+            wants = list(pool.map(
+                lambda p: snapshots[id(p[0])].align_banded(p[0], costs)[0],
+                scored))
+        for (seq, score), want in zip(scored, wants):
+            if want != score:
+                raise AssertionError(f"9e: a device score {score} is not the "
+                                     f"native engine's {want}")
+        print(f"[msa] all {len(scored)} device scores of the -O fasta run "
+              f"({assist_stats[0]['taken']} taken, the rest late) equal "
+              "NativeAligner.align_banded's against the graph each was "
+              "computed on", flush=True)
+        _phase_done("9e poasta align MSA")
+
+    # ---- 9f. B12, B16, B17 against their plain versions --------------------
+    results = {}
+    _, (dg, q, ln, c, prep), kw = captured["B16"]
+    mr = kw.get("max_run", 0)
+    P = int(dg.pred_slots.shape[1])
+    print(f"[kernels] B16 main path: {int(q.shape[0])} reads, Lq "
+          f"{int(q.shape[1])}, Wb {prep['width']}, margin {prep['margin']}, "
+          f"max_run {mr}, plan "
+          f"{cf.banded_plan(dg.window, prep['width'], prep['margin'], True)}",
+          flush=True)
+    results["B16"] = _compare(
+        "B16 main path", lambda: cf.banded_end_rows_2p(dg, q, c, prep, mr),
+        lambda: cf.banded_end_rows_2p_plain(dg, q, c, prep, mr), card,
+        reps=3)
+    results["B16"].update(fill_bound(
+        dg, int(q.shape[0]), prep["width"], int(q.shape[1]), prep["width"],
+        tilted=False, per_pred=PRED_OPS_2P, per_rank=RECURRENCE_OPS_2P,
+        table_cols=1 + P))
+
+    _, (dg, qpad, ln, c, prep, n_min), kw = captured["B17"]
+    nbs = cf.drift_units(ln, n_min)
+    mr = kw.get("max_run", 0)
+    plan = cf.variant_plan(cf.VARIANT_DRIFT_2P, dg.window, prep["width"],
+                           prep["margin"], int(qpad.shape[1]))
+    print(f"[kernels] B17 main path: {int(qpad.shape[0])} reads, Lq "
+          f"{int(qpad.shape[1])} (mq {prep['mq']}), Wb {prep['width']}, margin"
+          f" {prep['margin']}, S {prep['S']}, max_run {mr}, plan {plan}",
+          flush=True)
+    results["B17"] = _compare(
+        "B17 main path",
+        lambda: cf.drift_end_rows_2p(dg, qpad, nbs, c, prep, mr),
+        lambda: cf.drift_end_rows_2p_plain(dg, qpad, nbs, c, prep, mr), card,
+        reps=3)
+    results["B17"].update(fill_bound(
+        dg, int(qpad.shape[0]), prep["width"], int(qpad.shape[1]) + 1,
+        prep["width"], tilted=False, per_pred=PRED_OPS_2P,
+        per_rank=RECURRENCE_OPS_2P, table_cols=3 + P))
+
+    _, (dg, q, ln, c), _ = captured["B12"]
+    L = int(q.shape[1])
+    print(f"[kernels] B12 main path (the mixed tail): {int(q.shape[0])} reads,"
+          f" L {L}, plan {cf.fill_plan(dg.window, L, two_piece=True)}",
+          flush=True)
+    results["B12"] = _compare(
+        "B12 main path", lambda: cf.fill_end_rows_2p(dg, q, c),
+        lambda: cf.fill_end_rows_2p_plain(dg, q, c), card, reps=3)
+    results["B12"].update(fill_bound(
+        dg, int(q.shape[0]), L, L, L, tilted=False, per_pred=PRED_OPS_2P,
+        per_rank=RECURRENCE_OPS_2P))
+    _phase_done("9f B12, B16, B17 at the main paths' shapes")
     return results, launches
 
 

@@ -1,6 +1,7 @@
-"""Banded wavefront scoring with verify-and-retry: port of the one-piece,
-single-device part of ``poasta_tpu/aligner/banded.py`` (global and
-ends-free spans, shared and drifting windows).
+"""Banded wavefront scoring with verify-and-retry: port of the
+single-device part of ``poasta_tpu/aligner/banded.py`` (shared and
+drifting windows; one-piece costs under global and ends-free spans,
+two-piece costs under the global span).
 
 Every rank fills only a window of offsets chosen so that all states whose
 completion-cost lower bound is <= ub lie inside it (min/max graph distance
@@ -26,8 +27,10 @@ import torch
 from ..graphs.flat import FlatGraph
 from ..ops.cuda_fill import (
     banded_scores,
+    banded_scores_2p,
     drift_ef_scores,
     drift_scores,
+    drift_scores_2p,
     ef_scores,
     prepare_banded,
     prepare_banded_drift,
@@ -35,6 +38,7 @@ from ..ops.cuda_fill import (
 from ..ops.dp_rows import INF
 from .costs import EndsFree
 from .wavefront import (
+    TWO_PIECE_ENDS_FREE,
     DeviceGraph,
     _round_up,
     dp_fill_scores,
@@ -73,8 +77,12 @@ def _free_allowances(aln_type) -> Tuple[bool, int, int]:
 
 
 def _gap_budget(costs, ub: int) -> int:
-    """The longest gap a path of cost <= ub can hold."""
-    o, e = costs.gap_open, costs.gap_extend
+    """The longest gap a path of cost <= ub can hold.  Two-piece costs
+    count every gap at e2: a long gap opens on piece 1 and extends on
+    piece 2, and e2 <= e1 only over-covers the window (more work, never
+    less exactness)."""
+    o = costs.gap_open
+    e = costs.gap_extend2 if costs.is_two_piece else costs.gap_extend
     return max((ub - o) // e, 0) if ub >= o + e else 0
 
 
@@ -222,10 +230,15 @@ def ins_run_cap(costs, ub: int, width: int) -> int:
 
     A path of cost <= ub spends at most K = (ub - o) // e on one insertion
     run, so the insertion scan only needs to look back 2^ceil(log2 K)
-    lanes.  Truncation only removes candidate predecessors: the fill
-    still only over-estimates, and a score <= ub is still exact.
+    lanes.  Under two-piece costs a run opens at o1 + e1 and every further
+    lane costs at least min(e1, e2) (piece 2 is entered from piece 1 at
+    e2, not at gap_open2), so K = (ub - o1) // min(e1, e2).  Truncation
+    only removes candidate predecessors: the fill still only
+    over-estimates, and a score <= ub is still exact.
     """
     o, e = costs.gap_open, costs.gap_extend
+    if costs.is_two_piece:
+        e = min(e, costs.gap_extend2)
     K = max((ub - o) // e, 1) if ub >= o + e else 1
     cap = 1
     while cap < K:
@@ -270,14 +283,16 @@ def run_capped_ladder(costs, L: int, ub0: int, fill_capped, fill_plain):
 
 
 class BandedScorer:
-    """Exact banded scorer with tiered verify-and-retry, for one-piece
-    costs and global or ends-free spans.
+    """Exact banded scorer with tiered verify-and-retry: one-piece costs
+    under global or ends-free spans, two-piece costs (``GapAffine2Piece``)
+    under the global span.
 
     Usage: ``BandedScorer(flat, costs, aln_type=span).scores(qshift,
     lengths)`` with the batch from :func:`..wavefront.pack_queries`.
     ``device``: where the graph is laid out when no ``dg`` is given (None:
     the card).  ``aln_type``: None or Global for global alignment; an
-    ``EndsFree`` span scores through the ends-free fills.
+    ``EndsFree`` span scores through the ends-free fills, and with
+    two-piece costs raises (not ported yet).
     """
 
     # modelled fixed cost of one fill, in cells: biases the tier choice
@@ -290,8 +305,8 @@ class BandedScorer:
     def __init__(self, flat: FlatGraph, costs,
                  dg: Optional[DeviceGraph] = None, device=None,
                  aln_type=None):
-        if getattr(costs, "is_two_piece", False):
-            raise NotImplementedError("two-piece costs are not ported yet")
+        if costs.is_two_piece and isinstance(aln_type, EndsFree):
+            raise NotImplementedError(TWO_PIECE_ENDS_FREE)
         self.flat = flat
         self.costs = costs
         self.aln_type = aln_type
@@ -407,8 +422,9 @@ class BandedScorer:
             out = drift_ef_scores(self.dg, q_in, lengths, costs, prep, n_min,
                                   end_ok, jlo, max_run=max_run)
         else:
-            out = drift_scores(self.dg, q_in, lengths, costs, prep, n_min,
-                               max_run=max_run)
+            fill = drift_scores_2p if costs.is_two_piece else drift_scores
+            out = fill(self.dg, q_in, lengths, costs, prep, n_min,
+                       max_run=max_run)
         return out.cpu().numpy()
 
     def _fill_once(self, qshift, lengths, ub, n_min, n_max) -> np.ndarray:
@@ -450,8 +466,8 @@ class BandedScorer:
             out = ef_scores(self.dg, q_in, lengths, costs, prep, fs, end_ok,
                             jlo, max_run=max_run)
         else:
-            out = banded_scores(self.dg, q_in, lengths, costs, prep,
-                                max_run=max_run)
+            fill = banded_scores_2p if costs.is_two_piece else banded_scores
+            out = fill(self.dg, q_in, lengths, costs, prep, max_run=max_run)
         return out.cpu().numpy()
 
     def scores(self, qshift, lengths, ub: Optional[int] = None,

@@ -1,8 +1,8 @@
 """Dense wavefront fill: the static device graph, read packing, the
-full-fill scores (global and ends-free spans, the latter also with each
-read's end state), and the dense tables + host backtrace of small
-batches.  Port of the one-piece, single-device part of
-``poasta_tpu/aligner/wavefront.py``.
+full-fill scores (global spans under one- and two-piece costs, ends-free
+spans under one-piece costs, the latter also with each read's end state),
+and the dense tables + host backtrace of small one-piece batches.  Port of
+the single-device part of ``poasta_tpu/aligner/wavefront.py``.
 
 Ranks are the sequential axis, query offsets the lanes and reads the
 batch; rows live in a ring of ``W`` liveness-coloured slots, so the
@@ -18,8 +18,14 @@ import numpy as np
 import torch
 
 from ..graphs.flat import FlatGraph
-from ..ops.cuda_fill import bounded_scores, bounded_with_ends, fill_scores
+from ..ops.cuda_fill import (
+    bounded_scores,
+    bounded_with_ends,
+    fill_scores,
+    fill_scores_2p,
+)
 from ..ops.dp_rows import INF, row_update
+from ..ops.dp_rows_2p import row_update_2p
 from ..utils.device import resolve_device
 from .alignment import AlignedPair, Alignment
 from .costs import EndsFree
@@ -27,6 +33,7 @@ from .costs import EndsFree
 # rank rows are padded to a multiple of this, as in the reference's
 # default layout; the kernels loop over the true rank count only
 NODE_BUCKET = 64
+TWO_PIECE_ENDS_FREE = "two-piece ends-free is not ported yet"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -252,17 +259,51 @@ def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int):
         yield r, M, I, D
 
 
+def _scan_end_row_2p(dg: DeviceGraph, qshift: torch.Tensor, costs):
+    """The end rank's M row of the two-piece recurrence, by a plain rank
+    scan over :func:`..ops.dp_rows_2p.row_update_2p` with its coupled
+    insertion scan."""
+    o1, e1, e2 = costs.gap_open, costs.gap_extend, costs.gap_extend2
+    x = costs.mismatch
+    B, L = qshift.shape
+    rings = [torch.full((B, dg.window, L), INF, dtype=torch.int32,
+                        device=qshift.device) for _ in range(3)]
+    symbols = dg.symbols.tolist()
+    slots = dg.pred_slots.tolist()
+    wslots = dg.write_slots.tolist()
+    for r in range(dg.n_nodes):
+        idx = torch.as_tensor(slots[r], device=qshift.device)
+        pred_M, pred_D1, pred_D2 = (rg.index_select(1, idx) for rg in rings)
+        valid = dg.pred_valid[r]
+        if r == dg.end_rank_i:
+            # virtual end node: a zero-cost hop at the same offset
+            return torch.where(valid.view(1, -1, 1), pred_M,
+                               INF).min(1).values
+        match_cost = torch.where(qshift == symbols[r], 0, x).to(torch.int32)
+        M, _, _, D1, D2 = row_update_2p(pred_M, pred_D1, pred_D2, valid,
+                                        match_cost, o1, e1, e2,
+                                        is_start_row=r == 0, free_start=False)
+        for rg, row in zip(rings, (M, D1, D2)):
+            rg[:, wslots[r]] = row
+    raise ValueError("the graph has no end rank")
+
+
 def scan_scores(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
                 costs) -> torch.Tensor:
-    """(B,) global scores by a plain rank scan over :func:`row_update`.
+    """(B,) global scores by a plain rank scan over :func:`row_update`, or
+    for two-piece costs over ``row_update_2p``.
 
-    Twin of ``poasta_tpu``'s XLA ``_scores_exec``, independent of the fill
-    kernels and their plain versions, so it can serve as their oracle.
+    Twin of ``poasta_tpu``'s XLA ``_scores_exec`` and ``_scores_exec_2p``,
+    independent of the fill kernels and their plain versions, so it can
+    serve as their oracle.
     """
-    end_M = None
-    for r, M, _, _ in _scan_rows(dg, qshift, costs, dg.n_nodes):
-        if r == dg.end_rank_i:
-            end_M = M
+    if costs.is_two_piece:
+        end_M = _scan_end_row_2p(dg, qshift, costs)
+    else:
+        end_M = None
+        for r, M, _, _ in _scan_rows(dg, qshift, costs, dg.n_nodes):
+            if r == dg.end_rank_i:
+                end_M = M
     return end_M.gather(1, lengths.long().view(-1, 1))[:, 0]
 
 
@@ -274,10 +315,12 @@ def dp_fill_full(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
     rank's rows.  Plain PyTorch on any device; its tables feed
     :func:`backtrace_dense` only on shapes under the mapper's dense-table
     budget."""
-    if getattr(costs, "is_two_piece", False):
+    if costs.is_two_piece:
+        # as in the reference: the dense tables hold one insertion and one
+        # deletion layer, so two-piece alignment takes the banded route
         raise NotImplementedError(
-            "dp_fill_full implements the one-piece recurrence; two-piece "
-            "costs are not ported yet")
+            "dp_fill_full implements the one-piece recurrence; use "
+            "BatchMapper.align_batch / the banded path for two-piece costs")
     B, L = qshift.shape
     shape = (dg.n_nodes_padded, B, L)
     M = torch.empty(shape, dtype=torch.int32, device=qshift.device)
@@ -381,13 +424,14 @@ def backtrace_dense(flat: FlatGraph, M: np.ndarray, I: np.ndarray,
 
 def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
                    lengths: torch.Tensor, costs) -> torch.Tensor:
-    """(B,) optimal global alignment scores by the full-width fill.
+    """(B,) optimal global alignment scores by the full-width fill, under
+    one- or two-piece costs.
 
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
     plain PyTorch version does.
     """
-    if getattr(costs, "is_two_piece", False):
-        raise NotImplementedError("two-piece costs are not ported yet")
+    if costs.is_two_piece:
+        return fill_scores_2p(dg, qshift, lengths, costs)
     return fill_scores(dg, qshift, lengths, costs)
 
 
@@ -454,8 +498,8 @@ def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
     On a CUDA tensor the bounded fill kernel runs (or raises); on a CPU
     tensor its plain PyTorch version does.
     """
-    if getattr(costs, "is_two_piece", False):
-        raise NotImplementedError("two-piece costs are not ported yet")
+    if costs.is_two_piece:
+        raise NotImplementedError(TWO_PIECE_ENDS_FREE)
     free_start, end_ok, jlo = ends_free_device_params(
         flat, aln_type, lengths, dg.n_nodes_padded)
     return bounded_scores(dg, qshift, lengths, costs, free_start, end_ok, jlo,
@@ -477,8 +521,8 @@ def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
     plain PyTorch version does.
     """
-    if getattr(costs, "is_two_piece", False):
-        raise NotImplementedError("two-piece costs are not ported yet")
+    if costs.is_two_piece:
+        raise NotImplementedError(TWO_PIECE_ENDS_FREE)
     free_start, end_ok, jlo = ends_free_device_params(
         flat, aln_type, lengths, dg.n_nodes_padded)
     return bounded_with_ends(dg, qshift, lengths, costs, free_start, end_ok,
@@ -486,12 +530,16 @@ def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
 
 
 def alignment_cost(graph, query: bytes, alignment: Alignment, costs) -> int:
-    """Recompute an alignment's one-piece gap-affine cost from its pairs (a
+    """Recompute an alignment's gap-affine cost from its pairs (a
     validation helper: under any span the cost of the returned pairs must
-    equal the returned score, free ends emitting no pairs)."""
-    if getattr(costs, "is_two_piece", False):
-        raise NotImplementedError("two-piece costs are not ported yet")
+    equal the returned score, free ends emitting no pairs).
+
+    Two-piece costs follow the engines' state machine (I -> I2 and
+    D -> D2 at ``gap_extend2``): a run's first character costs
+    open + extend, each further one the cheaper of the two extends.
+    """
     o, e = costs.gap_open, costs.gap_extend
+    cont = min(e, costs.gap_extend2) if costs.is_two_piece else e
     total = 0
     prev_state = "M"
     for pair in alignment:
@@ -500,9 +548,9 @@ def alignment_cost(graph, query: bytes, alignment: Alignment, costs) -> int:
                 else costs.mismatch
             prev_state = "M"
         elif pair.is_insertion():  # graph node skipped: deletion state
-            total += (o + e) if prev_state != "D" else e
+            total += (o + e) if prev_state != "D" else cont
             prev_state = "D"
         else:  # query char unaligned: insertion state
-            total += (o + e) if prev_state != "I" else e
+            total += (o + e) if prev_state != "I" else cont
             prev_state = "I"
     return total

@@ -1,18 +1,21 @@
-// Banded one-piece gap-affine fill of a read batch against a POA graph, in
-// tilted coordinates: one kernel template for the global span on shared
-// windows (B1), drifting windows (B3), ends-free spans on shared windows
-// (B5), and drifting windows under a bounded ends-free span (B6).
+// Banded gap-affine fill of a read batch against a POA graph: one kernel
+// template for the global span on shared windows (B1), drifting windows
+// (B3), ends-free spans on shared windows (B5), drifting windows under a
+// bounded ends-free span (B6), and two-piece costs under the global span on
+// shared (B16) and drifting (B17) windows.
 //
 // Replaces, in poasta_tpu/ops/pallas_fill.py:
-//   VARIANT_GLOBAL    _banded_kernel           (pallas_banded_scores)
-//   VARIANT_DRIFT     _banded_kernel_drift     (pallas_banded_scores_drift)
-//   VARIANT_EF        _banded_kernel_ef        (pallas_banded_scores_ef)
-//   VARIANT_DRIFT_EF  _banded_kernel_drift_ef  (pallas_banded_scores_drift_ef)
+//   VARIANT_GLOBAL     _banded_kernel           (pallas_banded_scores)
+//   VARIANT_DRIFT      _banded_kernel_drift     (pallas_banded_scores_drift)
+//   VARIANT_EF         _banded_kernel_ef        (pallas_banded_scores_ef)
+//   VARIANT_DRIFT_EF   _banded_kernel_drift_ef  (pallas_banded_scores_drift_ef)
+//   VARIANT_GLOBAL_2P  _banded_kernel_2p        (pallas_banded_scores_2p)
+//   VARIANT_DRIFT_2P   _banded_kernel_drift_2p  (pallas_banded_scores_drift_2p)
 // Same inputs, same output rows, bit for bit.
 //
 // Recurrence, per read and per topological rank r, over the rank's window
-// of Wb lanes starting at the 128-aligned global offset w_r.  Rows store
-// X'(j) = X(j) - e*j for the global offset j = w_r + lane:
+// of Wb lanes starting at the 128-aligned global offset w_r.  One-piece
+// rows store X'(j) = X(j) - e*j for the global offset j = w_r + lane:
 //   min_pm, min_pd = min over predecessors of their stored M', D' rows,
 //                    each read shifted by clip(w_r - w_p, -MARGIN, MARGIN)
 //                    (lanes outside a stored window read INF)
@@ -25,6 +28,29 @@
 // out as the read's end row; the caller un-tilts it.  M is not clamped, so
 // INF erodes by at most e per rank: the caller's INF/2 threshold relies
 // on that.
+//
+// Two-piece costs (TWO_PIECE).  The launcher passes o = o1 + e1 - e2,
+// e = e2 and ed = e1 (ops/cuda_fill.py:fill_constants); a third ring
+// holds D2 and one more scratch row its new value.  Rows are untilted, as
+// the TPU's two-piece kernels keep them (with drift a ring margin keeps
+// values a roll left behind, C7, and a tilted row would read them at
+// another offset's tilt); with j = w_r + lane (+ sigma_b(r)):
+//   D    = min(min_pm + o + e, min_pd + ed)        (D1; o + e = o1 + e1)
+//   D2   = min(min_pd, min_pd2) + e
+//   diag = min_pm(lane - 1) + (match ? 0 : x), INF at lane 0
+//   A    = min(diag, D, D2), and min(A, 0) at (rank 0, j = 0)
+//   I    = min(prefix_min_cap(A - e*lane)(lane - 1) + e*lane + o, INF),
+//          INF at lane 0 (tilted over the lane, not the offset: the two
+//          differ by one constant a rank, and A - e*lane never passes INF
+//          where drift makes offsets negative)
+//   M    = min(A, I)
+// The TPU kernels scan the coupled (I1, I2) pair as a 2x2 min-plus
+// doubling scan.  Only M = min(A, I1, I2) enters a ring, and with
+// e1 >= e2 (GapAffine2Piece) a run of k >= 1 inserted lanes costs
+// o1 + e1 + (k - 1) * e2 at best, so min(I1, I2) is the one-piece
+// insertion with slope e2: one truncated prefix-min, the same look-back
+// window as the TPU's truncated scan (tests/test_torch_two_piece.py holds
+// the two equal, capped and uncapped).
 //
 // Drift.  Read b's window at rank r is the shared frame start w_r (which
 // may be negative) shifted right by sigma_b(r) = 128 * ((nbs_b * s_r) >> log2 S),
@@ -62,8 +88,13 @@
 // window; the launcher moves the rings, then the rows, to a per-block
 // global-memory slab when they do not fit (wide tiers, large W).  The best
 // row of an ends-free fill lives with the scratch rows under the same rule.
+// Two-piece costs count gaps at e2 <= e1, so their bands run about twice
+// as wide at a similar score, with three rings: at 5 kb reads the rings go
+// to the global slab and the scratch rows (six) stay in shared memory; the
+// one-piece-sized scan keeps the rank's barrier count at 3 + log2(cap),
+// where the TPU's coupled scan does five times the work per round.
 // The template's flags are compile-time, so the global instantiation
-// carries none of the others' rotation, seeding or best-row code.
+// carries none of the others' rotation, seeding, best-row or D2 code.
 #include "common.cuh"
 #include "prefix_min.cuh"
 
@@ -72,10 +103,12 @@ enum {
     VARIANT_DRIFT = 3,
     VARIANT_EF = 5,
     VARIANT_DRIFT_EF = 6,
+    VARIANT_GLOBAL_2P = 16,
+    VARIANT_DRIFT_2P = 17,
 };
 
 struct BandedShape {
-    int Lq, mq, log2S, n_nodes, end_rank, W, P, Wb, margin, o, e, x, cap;
+    int Lq, mq, log2S, n_nodes, end_rank, W, P, Wb, margin, o, e, ed, x, cap;
     int free_start;
     long long global_ints;
     int mode;
@@ -83,6 +116,19 @@ struct BandedShape {
 
 static inline int banded_best_lanes(int variant, int Wb, int Lq) {
     return variant == VARIANT_EF ? Lq : (variant == VARIANT_DRIFT_EF ? Wb : 0);
+}
+
+static inline bool banded_two_piece(int variant) {
+    return variant == VARIANT_GLOBAL_2P || variant == VARIANT_DRIFT_2P;
+}
+
+// Rings (M, D and, two-piece, D2) and scratch rows of a variant.
+static inline int banded_rings(int variant) {
+    return banded_two_piece(variant) ? 3 : 2;
+}
+
+static inline int banded_rows(int variant) {
+    return POASTA_ROWS + (banded_two_piece(variant) ? 1 : 0);
 }
 
 // Index of logical lane `lane + i` of the ring row that starts at `row`.
@@ -100,7 +146,7 @@ __device__ __forceinline__ long long ring_at(long long row, int lane, int i,
 // The read-only pointers are kernel parameters of their own, const and
 // __restrict__ (not members of the shape struct), so the compiler may keep
 // a rank's table entries in registers across the stores of a lane loop.
-template <bool DRIFT, int ENDS>
+template <bool DRIFT, int ENDS, bool TWO_PIECE>
 __global__ void banded_kernel(
     const int* __restrict__ symbols,       // (Np,)
     const int* __restrict__ pred_slots,    // (Np*P,) ring slot per predecessor
@@ -124,21 +170,27 @@ __global__ void banded_kernel(
     extern __shared__ int smem[];
     const int Wb = a.Wb, W = a.W, P = a.P, margin = a.margin;
     const int o = a.o, e = a.e, x = a.x, cap = a.cap;
+    const int ed = TWO_PIECE ? a.ed : e;  // the deletion extension
+    const int tilt = TWO_PIECE ? 0 : e;   // the rows' tilt
     const int n_nodes = a.n_nodes, end_rank = a.end_rank;
     const int TOT = Wb + 2 * margin;
     const int best_lanes = ENDS == 1 ? a.Lq : (ENDS == 2 ? Wb : 0);
+    const int n_rows = POASTA_ROWS + (TWO_PIECE ? 1 : 0);
+    const int n_rings = TWO_PIECE ? 3 : 2;
     int* rows;
     int* mring;
     poasta_workspace(a.mode, smem, gws, a.global_ints,
-                     (long long)POASTA_ROWS * Wb + best_lanes, &rows, &mring);
+                     (long long)n_rows * Wb + best_lanes, &rows, &mring);
     const long long ring_ints = (long long)W * TOT;
     int* dring = mring + ring_ints;
+    int* d2ring = dring + ring_ints;  // two-piece only
     int* pm_row = rows;
     int* d_row = rows + Wb;
     int* a_row = rows + 2 * Wb;
     int* s0 = rows + 3 * Wb;
     int* s1 = rows + 4 * Wb;
-    int* best = rows + 5 * Wb;
+    int* d2_row = rows + 5 * Wb;  // two-piece only
+    int* best = rows + n_rows * Wb;
     const int b = blockIdx.x;
     const int* q = qrows + (long long)b * a.Lq;
     int* out = out_rows + (long long)b * (ENDS == 1 ? a.Lq : Wb);
@@ -148,8 +200,8 @@ __global__ void banded_kernel(
     int rot = 0;     // ring rotation in lanes, < TOT (drift)
     int rolled = 0;  // lanes the read's frame has rolled left so far (drift)
 
-    for (long long i = threadIdx.x; i < 2 * ring_ints; i += blockDim.x)
-        mring[i] = POASTA_INF;  // the D ring follows the M ring
+    for (long long i = threadIdx.x; i < n_rings * ring_ints; i += blockDim.x)
+        mring[i] = POASTA_INF;  // the D (and D2) rings follow the M ring
     for (int i = threadIdx.x; i < best_lanes; i += blockDim.x)
         best[i] = POASTA_INF;
     __syncthreads();
@@ -166,8 +218,9 @@ __global__ void banded_kernel(
             sig = ((nbs * s_r) >> a.log2S) * 128;
             if (s_r > s_p && sig > ((nbs * s_p) >> a.log2S) * 128) {
                 // the read re-frames: the 128 lanes that wrap round are the
-                // new right edge of every M and D row
-                for (int i = threadIdx.x; i < 2 * W * 128; i += blockDim.x) {
+                // new right edge of every M and D (and D2) row
+                for (int i = threadIdx.x; i < n_rings * W * 128;
+                     i += blockDim.x) {
                     int t = rot + (i & 127);
                     if (t >= TOT) t -= TOT;
                     mring[(long long)(i >> 7) * TOT + t] = POASTA_INF;
@@ -187,6 +240,7 @@ __global__ void banded_kernel(
             const long long off0 = ring_at<DRIFT>(row0, lane0 + d0, i, TOT);
             int pm = mring[off0];
             int pd = dring[off0];
+            int pd2 = TWO_PIECE ? d2ring[off0] : 0;
             for (int p = 1; p < P; ++p) {
                 if (pv[p] == 1) {
                     const int dp = min(max(w_r - pw[p], -margin), margin);
@@ -194,10 +248,12 @@ __global__ void banded_kernel(
                         (long long)ps[p] * TOT, lane0 + dp, i, TOT);
                     pm = min(pm, mring[off]);
                     pd = min(pd, dring[off]);
+                    if (TWO_PIECE) pd2 = min(pd2, d2ring[off]);
                 }
             }
             pm_row[i] = pm;
-            d_row[i] = min(pm + (o + e), pd + e);
+            d_row[i] = min(pm + (o + e), pd + ed);
+            if (TWO_PIECE) d2_row[i] = min(pd, pd2) + e;
         }
         __syncthreads();
 
@@ -212,10 +268,12 @@ __global__ void banded_kernel(
             } else {
                 qv = q[w_r + i];
             }
-            int av = min(src + (qv == sym ? -e : x - e), d_row[i]);
-            if (seeds && w_r + i + sig == 0) av = min(av, 0);
+            const int j = w_r + i + sig;
+            int av = min(src + (qv == sym ? -tilt : x - tilt), d_row[i]);
+            if (TWO_PIECE) av = min(av, d2_row[i]);
+            if (seeds && j == 0) av = min(av, 0);
             a_row[i] = av;
-            s0[i] = av;
+            s0[i] = TWO_PIECE ? av - e * i : av;
         }
         __syncthreads();
         const int* pref = block_prefix_min(s0, s1, Wb, cap);
@@ -223,19 +281,23 @@ __global__ void banded_kernel(
         const bool permitted = ENDS != 0 && end_ok[r] == 1;
         const long long wrow = (long long)wslots[r] * TOT;
         for (int i = threadIdx.x; i < Wb; i += blockDim.x) {
-            int m, d;
+            int m, d, d2 = POASTA_INF;
             if (is_end) {
                 m = pm_row[i];
                 d = POASTA_INF;
                 if (ENDS == 0) out[i] = m;
             } else {
-                const int pm1 = i >= 1 ? pref[i - 1] : POASTA_INF;
+                int pm1 = i >= 1 ? pref[i - 1] : POASTA_INF;
+                // untilted rows: back from the scan's tilt
+                if (TWO_PIECE && i >= 1) pm1 += e * i;
                 m = min(a_row[i], min(pm1 + o, POASTA_INF));
                 d = min(d_row[i], POASTA_INF);
+                if (TWO_PIECE) d2 = min(d2_row[i], POASTA_INF);
             }
             const long long woff = ring_at<DRIFT>(wrow, lane0, i, TOT);
             mring[woff] = m;
             dring[woff] = d;
+            if (TWO_PIECE) d2ring[woff] = d2;
             if (permitted) {
                 if (ENDS == 1) {
                     best[w_r + i] = min(best[w_r + i], m);
@@ -256,11 +318,14 @@ __global__ void banded_kernel(
 static cudaError_t banded_plan(int variant, int W, int Wb, int margin, int Lq,
                                PoastaPlan* plan) {
     if (variant != VARIANT_GLOBAL && variant != VARIANT_DRIFT
-        && variant != VARIANT_EF && variant != VARIANT_DRIFT_EF)
+        && variant != VARIANT_EF && variant != VARIANT_DRIFT_EF
+        && !banded_two_piece(variant))
         return cudaErrorInvalidValue;
     return poasta_plan(
-        Wb, (long long)POASTA_ROWS * Wb + banded_best_lanes(variant, Wb, Lq),
-        2LL * W * (Wb + 2 * margin), plan);
+        Wb,
+        (long long)banded_rows(variant) * Wb
+            + banded_best_lanes(variant, Wb, Lq),
+        (long long)banded_rings(variant) * W * (Wb + 2 * margin), plan);
 }
 
 extern "C" int poasta_banded_plan(int variant, int W, int Wb, int margin,
@@ -282,8 +347,8 @@ extern "C" int poasta_banded_fill(
     const int* wslots, const int* s_ranks, const int* s_prev,
     const int* end_ok, const int* q, const int* nbs, const int* jlo,
     const int* len, int B, int Lq, int mq, int log2S, int n_nodes,
-    int end_rank, int W, int P, int Wb, int margin, int o, int e, int x,
-    int cap, int free_start, int* out, int* gws, long long gws_ints,
+    int end_rank, int W, int P, int Wb, int margin, int o, int e, int ed,
+    int x, int cap, int free_start, int* out, int* gws, long long gws_ints,
     void* stream) {
     PoastaPlan plan;
     cudaError_t err = banded_plan(variant, W, Wb, margin, Lq, &plan);
@@ -291,16 +356,19 @@ extern "C" int poasta_banded_fill(
     if (gws_ints < plan.global_ints * (long long)B)
         return (int)cudaErrorInvalidValue;
     BandedShape a = {Lq, mq, log2S, n_nodes, end_rank, W, P, Wb, margin, o, e,
-                     x, cap, free_start, plan.global_ints, plan.mode};
+                     ed, x, cap, free_start, plan.global_ints, plan.mode};
     cudaStream_t st = (cudaStream_t)stream;
-#define BANDED_LAUNCH(DRIFT, ENDS)                                            \
-    (int)poasta_launch(banded_kernel<DRIFT, ENDS>, B, plan, st, symbols,      \
-                       pred_slots, pred_valid, pred_wstarts, wstarts, wslots, \
-                       s_ranks, s_prev, end_ok, q, nbs, jlo, len, a, out, gws)
-    if (variant == VARIANT_GLOBAL) return BANDED_LAUNCH(false, 0);
-    if (variant == VARIANT_DRIFT) return BANDED_LAUNCH(true, 0);
-    if (variant == VARIANT_EF) return BANDED_LAUNCH(false, 1);
-    return BANDED_LAUNCH(true, 2);
+#define BANDED_LAUNCH(DRIFT, ENDS, TWO_PIECE)                                 \
+    (int)poasta_launch(banded_kernel<DRIFT, ENDS, TWO_PIECE>, B, plan, st,    \
+                       symbols, pred_slots, pred_valid, pred_wstarts, wstarts, \
+                       wslots, s_ranks, s_prev, end_ok, q, nbs, jlo, len, a,  \
+                       out, gws)
+    if (variant == VARIANT_GLOBAL) return BANDED_LAUNCH(false, 0, false);
+    if (variant == VARIANT_DRIFT) return BANDED_LAUNCH(true, 0, false);
+    if (variant == VARIANT_EF) return BANDED_LAUNCH(false, 1, false);
+    if (variant == VARIANT_DRIFT_EF) return BANDED_LAUNCH(true, 2, false);
+    if (variant == VARIANT_GLOBAL_2P) return BANDED_LAUNCH(false, 0, true);
+    return BANDED_LAUNCH(true, 0, true);
 #undef BANDED_LAUNCH
 }
 

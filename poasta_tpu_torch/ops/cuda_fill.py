@@ -13,9 +13,25 @@ Port of ``poasta_tpu/ops/pallas_fill.py``.  TPU kernel -> wrapper here
   (banded_kernel.cu)
 * B7 ``_fill_kernel_bounded_ends`` (and its streamed twin B10) ->
   ``bounded_end_rows`` (fill_kernel.cu)
+* B12 ``_fill_kernel_2p``, global -> ``fill_end_rows_2p`` (fill_kernel.cu)
+* B16 ``_banded_kernel_2p`` -> ``banded_end_rows_2p`` (banded_kernel.cu)
+* B17 ``_banded_kernel_drift_2p`` -> ``drift_end_rows_2p``
+  (banded_kernel.cu)
 
 ``banded_kernel.cu`` and ``fill_kernel.cu`` each hold one kernel template;
 the variants are its compile-time instantiations.
+
+Two-piece costs (B12, B16, B17) run the same recurrence with a third ring
+(D2) and one more scratch row.  Only M = min(A, I1, I2) enters a ring, and
+``GapAffine2Piece`` has e1 >= e2, so a run of k >= 1 inserted lanes costs
+o1 + e1 + (k - 1) * e2 at best (switch to piece 2 at once, never reopen):
+min(I1, I2) is the one-piece insertion row with slope e2 and open
+o1 + e1 - e2, one truncated prefix-min of A - e2*lane, not the TPU kernels'
+coupled 2x2 min-plus scan (:func:`fill_constants`;
+``tests/test_torch_two_piece.py`` holds the two equal, capped and not).
+Two-piece rows are stored untilted, as the TPU's two-piece kernels store
+them: with drift a ring margin keeps values a roll left behind (ROADMAP
+C7), and a tilted row would read those at another offset's tilt.
 
 Each fill has:
 
@@ -41,8 +57,35 @@ from ..utils import build
 from .dp_rows import INF, _shift_right
 
 PLACEMENTS = ("smem", "rings-global", "global")
-# variant codes of csrc/banded_kernel.cu
+# variant codes of csrc/banded_kernel.cu (the TPU kernels' B numbers)
 VARIANT_GLOBAL, VARIANT_DRIFT, VARIANT_EF, VARIANT_DRIFT_EF = 1, 3, 5, 6
+VARIANT_GLOBAL_2P, VARIANT_DRIFT_2P = 16, 17
+# variant codes of csrc/fill_kernel.cu
+FILL_GLOBAL, FILL_BOUNDED, FILL_BOUNDED_ENDS, FILL_GLOBAL_2P = 0, 1, 2, 3
+
+
+def fill_constants(costs):
+    """``(o, e, ed, x)``, the constants every fill kernel takes.
+
+    Insertions: I(j) = min over the look-back window i < j of
+    A(i) + o + e*(j - i), one prefix-min of A tilted by the slope ``e``
+    (the one-piece banded rows are stored tilted; the full fills and the
+    two-piece banded rows tilt A by e*lane for the scan and back).
+    Deletions: D = min(M_pred + o + e, D_pred + ``ed``).  One-piece costs
+    give (o, e, e, x).  Two-piece costs give (o1 + e1 - e2, e2, e1, x): with
+    e1 >= e2 a run of k >= 1 inserted lanes costs o1 + e1 + (k - 1) * e2 at
+    best, which is the one-piece insertion with slope e2 and open
+    o1 + e1 - e2; D1 opens at o1 + e1 = o + e and extends at e1, and the
+    kernels add D2 = min(D1_pred, D2_pred) + e.
+    """
+    if not costs.is_two_piece:
+        return (costs.gap_open, costs.gap_extend, costs.gap_extend,
+                costs.mismatch)
+    o1, e1, e2 = costs.gap_open, costs.gap_extend, costs.gap_extend2
+    if e1 < e2:
+        raise ValueError(f"two-piece costs need gap_extend >= gap_extend2, "
+                         f"got {e1} < {e2}")
+    return o1 + e1 - e2, e2, e1, costs.mismatch
 
 
 def _prefix_min(t: torch.Tensor, cap: int) -> torch.Tensor:
@@ -78,28 +121,35 @@ def _plan(fn, *args) -> dict:
             "smem_bytes": smem.value, "global_ints_per_read": gints.value}
 
 
-def banded_plan(W: int, width: int, margin: int) -> dict:
-    """Launch shape and working-set placement of the banded kernel (B1)
-    for a ring of W rows of ``width + 2*margin`` lanes (needs the card)."""
-    return variant_plan(VARIANT_GLOBAL, W, width, margin, 0)
+def banded_plan(W: int, width: int, margin: int,
+                two_piece: bool = False) -> dict:
+    """Launch shape and working-set placement of the banded kernel (B1, or
+    B16 with ``two_piece``) for a ring of W rows of ``width + 2*margin``
+    lanes (needs the card)."""
+    return variant_plan(VARIANT_GLOBAL_2P if two_piece else VARIANT_GLOBAL,
+                        W, width, margin, 0)
 
 
-def fill_plan(W: int, L: int) -> dict:
-    """Launch shape and working-set placement of the full-fill kernel."""
-    return _plan("poasta_fill_plan", 0, W, L)
+def fill_plan(W: int, L: int, two_piece: bool = False) -> dict:
+    """Launch shape and working-set placement of the full-fill kernel (B2,
+    or B12 with ``two_piece``)."""
+    return _plan("poasta_fill_plan",
+                 FILL_GLOBAL_2P if two_piece else FILL_GLOBAL, W, L)
 
 
 def bounded_plan(W: int, L: int, ends: bool = False) -> dict:
     """Launch shape and placement of the bounded full-fill kernel (B4), or
     with ``ends`` of the one that also keeps the end ranks (B7)."""
-    return _plan("poasta_fill_plan", 2 if ends else 1, W, L)
+    return _plan("poasta_fill_plan",
+                 FILL_BOUNDED_ENDS if ends else FILL_BOUNDED, W, L)
 
 
 def variant_plan(variant: int, W: int, width: int, margin: int,
                  Lq: int) -> dict:
     """Launch shape and placement of a banded variant (``VARIANT_GLOBAL``,
-    ``VARIANT_DRIFT``, ``VARIANT_EF``, ``VARIANT_DRIFT_EF``) on query rows
-    of ``Lq`` lanes (only the ends-free variants' placement depends on it)."""
+    ``VARIANT_DRIFT``, ``VARIANT_EF``, ``VARIANT_DRIFT_EF``,
+    ``VARIANT_GLOBAL_2P``, ``VARIANT_DRIFT_2P``) on query rows of ``Lq``
+    lanes (only the ends-free variants' placement depends on it)."""
     return _plan("poasta_banded_plan", variant, W, width, margin, Lq)
 
 
@@ -108,9 +158,13 @@ def _workspace(plan: dict, B: int, dev) -> torch.Tensor:
                        dtype=torch.int32, device=dev)
 
 
-def _dispatch(kernel, plain, q: torch.Tensor, what: str):
+def _dispatch(kernel, plain, q: torch.Tensor, what: str, costs,
+              two_piece: bool = False):
     """The kernel for a CUDA tensor, the plain version for a CPU tensor;
-    any other device raises."""
+    any other device, or costs of the other model, raises."""
+    if costs.is_two_piece != two_piece:
+        raise ValueError(f"the {what} takes "
+                         f"{'two' if two_piece else 'one'}-piece costs")
     if q.device.type == "cuda":
         return kernel
     if q.device.type == "cpu":
@@ -214,11 +268,17 @@ def _roll_left_128(t: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.cat([t[..., 128:], pad], dim=-1)
 
 
+def _row_tilt(costs) -> int:
+    """The slope e of the banded rows' tilt X'(j) = X(j) - e*j: the
+    one-piece rows are tilted, the two-piece rows are not."""
+    return 0 if costs.is_two_piece else costs.gap_extend
+
+
 def _banded_plain(dg, q: torch.Tensor, costs, prep: dict, max_run: int,
                   nbs=None, free_start: bool = False, end_ok=None,
                   end_window=None) -> torch.Tensor:
-    """The banded kernels' plain version, in tilted coordinates
-    (X'(j) = X(j) - e*j).
+    """The banded kernels' plain version, in coordinates tilted by
+    :func:`_row_tilt`.  Two-piece costs keep a third ring (D2), untilted.
 
     ``nbs`` (B,): drifting frames.  At a rank where a read's shift
     sigma_b = 128 * (nbs_b * s_r // S) advances, its query row and every
@@ -228,13 +288,16 @@ def _banded_plain(dg, q: torch.Tensor, costs, prep: dict, max_run: int,
     offset, still tilted, or, with ``end_window = (jlo, lengths)``, a
     (B, Wb) tile of un-tilted values gated per lane by jlo <= j <= n.
     """
-    o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
+    o, e, ed, x = fill_constants(costs)
+    tilt = _row_tilt(costs)
+    two_piece = costs.is_two_piece
     B = q.shape[0]
     Wb, margin = prep["width"], prep["margin"]
     dev = q.device
-    m_ring = torch.full((dg.window, B, Wb + 2 * margin), INF,
+    # M, D (D1) and, for two-piece costs, D2
+    rings = [torch.full((dg.window, B, Wb + 2 * margin), INF,
                         dtype=torch.int32, device=dev)
-    d_ring = torch.full_like(m_ring, INF)
+             for _ in range(3 if two_piece else 2)]
     cap = _scan_cap(Wb, max_run)
     P = dg.pred_slots.shape[1]
     symbols = dg.symbols.tolist()
@@ -244,6 +307,7 @@ def _banded_plain(dg, q: torch.Tensor, costs, prep: dict, max_run: int,
     pw = prep["pred_wstarts"].view(-1, P).tolist()
     wslots = dg.write_slots.tolist()
     col = torch.arange(Wb, dtype=torch.int32, device=dev)
+    e_lane = e * col
     drift = nbs is not None
     if drift:
         s_ranks, s_prev = prep["s_ranks"].tolist(), prep["s_prev"].tolist()
@@ -265,10 +329,8 @@ def _banded_plain(dg, q: torch.Tensor, costs, prep: dict, max_run: int,
                 stepped = sig > 128 * ((nbs * s_prev[r]) // S)
                 q = torch.where(stepped.view(-1, 1), _roll_left_128(q, 0), q)
                 step3 = stepped.view(1, -1, 1)
-                m_ring = torch.where(step3, _roll_left_128(m_ring, INF),
-                                     m_ring)
-                d_ring = torch.where(step3, _roll_left_128(d_ring, INF),
-                                     d_ring)
+                rings = [torch.where(step3, _roll_left_128(rg, INF), rg)
+                         for rg in rings]
             j32 = w_r + col.view(1, -1) + sig.view(-1, 1)
             qwin = q[:, w_r + mq:w_r + mq + Wb]
         else:
@@ -277,32 +339,42 @@ def _banded_plain(dg, q: torch.Tensor, costs, prep: dict, max_run: int,
 
         def window(p):
             start = margin + min(max(w_r - pw[r][p], -margin), margin)
-            return (m_ring[slots[r][p], :, start:start + Wb],
-                    d_ring[slots[r][p], :, start:start + Wb])
+            return [rg[slots[r][p], :, start:start + Wb] for rg in rings]
 
         # p = 0 is unconditional (rank 0 reads an all-INF row)
-        min_pm, min_pd = window(0)
+        mins = window(0)
         for p in range(1, P):
             if valid[r][p] == 1:
-                am, ad = window(p)
-                min_pm = torch.minimum(min_pm, am)
-                min_pd = torch.minimum(min_pd, ad)
-        D = torch.minimum(min_pm + (o + e), min_pd + e)
+                mins = [torch.minimum(a, b) for a, b in zip(mins, window(p))]
+        min_pm, min_pd = mins[0], mins[1]
+        Ds = [torch.minimum(min_pm + (o + e), min_pd + ed)]
+        if two_piece:
+            Ds.append(torch.minimum(min_pd, mins[2]) + e)
         diag = _shift_right(min_pm) + torch.where(
-            qwin == symbols[r], -e, x - e).to(torch.int32)
-        A = torch.minimum(diag, D)
+            qwin == symbols[r], -tilt, x - tilt).to(torch.int32)
+        A = diag
+        for D in Ds:
+            A = torch.minimum(A, D)
         is_end = r == dg.end_rank_i
         if r == 0 or (free_start and not is_end):
             A = torch.where(j32 == 0, torch.clamp(A, max=0), A)
         if is_end:
             M = end_row = min_pm.clone()
-            D = torch.full_like(D, INF)
+            Ds = [torch.full_like(D, INF) for D in Ds]
         else:
-            I = torch.clamp(_shift_right(_prefix_min(A, cap)) + o, max=INF)
+            if two_piece:
+                # untilted rows: the scan runs on A tilted by e over the
+                # lane (offsets differ from lanes by one constant a rank,
+                # and A - e*lane never passes INF), and returns
+                pref = _prefix_min(A - e_lane, cap) + e_lane
+                I = torch.clamp(_shift_right(pref) + (o + e), max=INF)
+            else:
+                I = torch.clamp(_shift_right(_prefix_min(A, cap)) + o,
+                                max=INF)
             M = torch.minimum(A, I)
-            D = torch.clamp(D, max=INF)
-        m_ring[wslots[r], :, margin:margin + Wb] = M
-        d_ring[wslots[r], :, margin:margin + Wb] = D
+            Ds = [torch.clamp(D, max=INF) for D in Ds]
+        for rg, row in zip(rings, [M] + Ds):
+            rg[wslots[r], :, margin:margin + Wb] = row
         if best is not None and permitted[r] == 1:
             if end_window is not None:
                 allowed = (j32 >= jlo) & (j32 <= n_b)
@@ -363,8 +435,8 @@ def _launch_variant(variant: int, wrapper, dg, q, costs, prep, max_run,
             q.data_ptr(), ptr(nbs), ptr(jlo), ptr(lengths), B, Lq, mq,
             prep.get("S", 1).bit_length() - 1, dg.n_nodes, dg.end_rank_i,
             dg.window, int(dg.pred_slots.shape[1]), Wb, margin,
-            costs.gap_open, costs.gap_extend, costs.mismatch,
-            _scan_cap(Wb, max_run), int(free_start), out.data_ptr(),
+            *fill_constants(costs), _scan_cap(Wb, max_run), int(free_start),
+            out.data_ptr(),
             gws.data_ptr(), gws.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, f"banded fill kernel (variant {variant}) launch")
@@ -372,10 +444,12 @@ def _launch_variant(variant: int, wrapper, dg, q, costs, prep, max_run,
     return out
 
 
-def _untilt_at(rows, idx, lengths, e: int) -> torch.Tensor:
-    """Each read's score from lane ``idx`` of its tilted row: un-tilt by
-    +e*length; eroded-INF lanes (INF walked down by at most e per rank) map
-    to INF, as do reads whose lane lies outside the row."""
+def _untilt_at(rows, idx, lengths, costs) -> torch.Tensor:
+    """Each read's score from lane ``idx`` of its row: un-tilt by
+    +e*length (:func:`_row_tilt`); eroded-INF lanes (INF walked down by at
+    most e per rank) map to INF, as do reads whose lane lies outside the
+    row."""
+    e = _row_tilt(costs)
     Wb = rows.shape[1]
     in_range = (idx >= 0) & (idx < Wb)
     at = rows.gather(1, idx.clamp(0, Wb - 1).long().view(-1, 1))[:, 0]
@@ -423,7 +497,7 @@ def banded_end_rows(dg, qshift: torch.Tensor, costs, prep: dict,
     scans the whole window.
     """
     fn = _dispatch(_launch_banded, banded_end_rows_plain, qshift,
-                   "banded fill")
+                   "banded fill", costs)
     return fn(dg, qshift, costs, prep, max_run)
 
 
@@ -432,7 +506,7 @@ banded_end_rows.launches = 0
 
 def _banded_scores_from(end_row, lengths, prep, costs) -> torch.Tensor:
     return _untilt_at(end_row, lengths.to(torch.int32) - prep["w_end"],
-                      lengths, costs.gap_extend)
+                      lengths, costs)
 
 
 def banded_scores(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
@@ -473,7 +547,8 @@ def drift_end_rows(dg, qpad: torch.Tensor, nbs: torch.Tensor, costs,
     the left; ``nbs``: :func:`drift_units`; ``prep``:
     :func:`prepare_banded_drift`.
     """
-    fn = _dispatch(_launch_drift, drift_end_rows_plain, qpad, "drift fill")
+    fn = _dispatch(_launch_drift, drift_end_rows_plain, qpad, "drift fill",
+                   costs)
     return fn(dg, qpad, nbs, costs, prep, max_run)
 
 
@@ -484,7 +559,7 @@ def _drift_scores(rows_fn, dg, qpad, lengths, costs, prep, n_min, max_run):
     nbs = drift_units(lengths, n_min)
     end_row = rows_fn(dg, qpad, nbs, costs, prep, max_run)
     idx = lengths.to(torch.int32) - prep["w_end"] - 128 * nbs
-    return _untilt_at(end_row, idx, lengths, costs.gap_extend)
+    return _untilt_at(end_row, idx, lengths, costs)
 
 
 def drift_scores(dg, qpad: torch.Tensor, lengths: torch.Tensor, costs,
@@ -524,7 +599,7 @@ def ef_best_rows(dg, qshift: torch.Tensor, costs, prep: dict,
     M' over the ranks ``end_ok`` permits, a free graph begin seeding j = 0
     at every rank when ``free_start``."""
     fn = _dispatch(_launch_ef, ef_best_rows_plain, qshift,
-                   "ends-free banded fill")
+                   "ends-free banded fill", costs)
     return fn(dg, qshift, costs, prep, free_start, end_ok, max_run)
 
 
@@ -580,7 +655,7 @@ def drift_ef_best_rows(dg, qpad: torch.Tensor, nbs: torch.Tensor,
     ends-free span (no free graph begin): per lane, the min over permitted
     ranks of M at the offsets jlo_b <= j <= n_b."""
     fn = _dispatch(_launch_drift_ef, drift_ef_best_rows_plain, qpad,
-                   "drift ends-free fill")
+                   "drift ends-free fill", costs)
     return fn(dg, qpad, nbs, lengths, jlo, costs, prep, end_ok, max_run)
 
 
@@ -612,8 +687,91 @@ def drift_ef_scores_plain(dg, qpad, lengths, costs, prep: dict, n_min: int,
                             costs, prep, n_min, end_ok, jlo, max_run)
 
 
+# ---- B16: shared windows, global span, two-piece costs -------------------
+
+def banded_end_rows_2p_plain(dg, qshift: torch.Tensor, costs, prep: dict,
+                             max_run: int = 0) -> torch.Tensor:
+    """Plain version of the two-piece banded kernel: the (B, Wb) untilted
+    end row (lane i at offset w_end + i)."""
+    return _banded_plain(dg, qshift, costs, prep, max_run)
+
+
+def _launch_banded_2p(dg, qshift, costs, prep, max_run):
+    return _launch_variant(VARIANT_GLOBAL_2P, banded_end_rows_2p, dg, qshift,
+                           costs, prep, max_run, prep["width"])
+
+
+def banded_end_rows_2p(dg, qshift: torch.Tensor, costs, prep: dict,
+                       max_run: int = 0) -> torch.Tensor:
+    """(B, Wb) untilted end rows of the two-piece banded fill: the kernel
+    on a CUDA tensor, the plain version on a CPU tensor.  Arguments as for
+    :func:`banded_end_rows`; ``costs`` is a ``GapAffine2Piece``."""
+    fn = _dispatch(_launch_banded_2p, banded_end_rows_2p_plain, qshift,
+                   "two-piece banded fill", costs, two_piece=True)
+    return fn(dg, qshift, costs, prep, max_run)
+
+
+banded_end_rows_2p.launches = 0
+
+
+def banded_scores_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
+                     prep: dict, max_run: int = 0) -> torch.Tensor:
+    """(B,) two-piece banded global scores (upper bounds)."""
+    return _banded_scores_from(
+        banded_end_rows_2p(dg, qshift, costs, prep, max_run), lengths, prep,
+        costs)
+
+
+def banded_scores_2p_plain(dg, qshift, lengths, costs, prep: dict,
+                           max_run: int = 0) -> torch.Tensor:
+    return _banded_scores_from(
+        banded_end_rows_2p_plain(dg, qshift, costs, prep, max_run), lengths,
+        prep, costs)
+
+
+# ---- B17: drifting windows, global span, two-piece costs -----------------
+
+def drift_end_rows_2p_plain(dg, qpad: torch.Tensor, nbs: torch.Tensor, costs,
+                            prep: dict, max_run: int = 0) -> torch.Tensor:
+    """Plain version of the two-piece drift kernel: all three rings roll
+    with the read's frame; the (B, Wb) end row is untilted (lane i at
+    offset w_end + 128*nbs_b + i)."""
+    return _banded_plain(dg, qpad, costs, prep, max_run, nbs=nbs)
+
+
+def _launch_drift_2p(dg, qpad, nbs, costs, prep, max_run):
+    return _launch_variant(VARIANT_DRIFT_2P, drift_end_rows_2p, dg, qpad,
+                           costs, prep, max_run, prep["width"], nbs=nbs)
+
+
+def drift_end_rows_2p(dg, qpad: torch.Tensor, nbs: torch.Tensor, costs,
+                      prep: dict, max_run: int = 0) -> torch.Tensor:
+    """(B, Wb) untilted end rows of the two-piece drifting-window fill;
+    arguments as for :func:`drift_end_rows`."""
+    fn = _dispatch(_launch_drift_2p, drift_end_rows_2p_plain, qpad,
+                   "two-piece drift fill", costs, two_piece=True)
+    return fn(dg, qpad, nbs, costs, prep, max_run)
+
+
+drift_end_rows_2p.launches = 0
+
+
+def drift_scores_2p(dg, qpad: torch.Tensor, lengths: torch.Tensor, costs,
+                    prep: dict, n_min: int, max_run: int = 0) -> torch.Tensor:
+    """(B,) two-piece banded global scores on drifting windows (upper
+    bounds)."""
+    return _drift_scores(drift_end_rows_2p, dg, qpad, lengths, costs, prep,
+                         n_min, max_run)
+
+
+def drift_scores_2p_plain(dg, qpad, lengths, costs, prep: dict, n_min: int,
+                          max_run: int = 0) -> torch.Tensor:
+    return _drift_scores(drift_end_rows_2p_plain, dg, qpad, lengths, costs,
+                         prep, n_min, max_run)
+
+
 # --------------------------------------------------------------------------
-# Full-width fills: one plain rank loop for B2, B4 and B7
+# Full-width fills: one plain rank loop for B2, B4, B7 and B12
 # --------------------------------------------------------------------------
 
 def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
@@ -623,12 +781,15 @@ def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
     end rank's row, a free graph begin seeding j = 0 at every rank but the
     end rank, and the insertion scan truncated to ``max_run`` lanes.  With
     ``ends``: (best, ranks), ranks (B, L) holding the first rank that
-    reached each best value (0 where none did)."""
-    o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
+    reached each best value (0 where none did).  Two-piece costs keep a
+    third ring (D2)."""
+    o, e, ed, x = fill_constants(costs)
+    two_piece = costs.is_two_piece
     B, L = qshift.shape
     dev = qshift.device
-    m_ring = torch.full((dg.window, B, L), INF, dtype=torch.int32, device=dev)
-    d_ring = torch.full_like(m_ring, INF)
+    # M, D (D1) and, for two-piece costs, D2
+    rings = [torch.full((dg.window, B, L), INF, dtype=torch.int32,
+                        device=dev) for _ in range(3 if two_piece else 2)]
     ej = e * torch.arange(L, dtype=torch.int32, device=dev)
     cap = _scan_cap(L, max_run)
     P = dg.pred_slots.shape[1]
@@ -644,28 +805,32 @@ def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
     end_row = None
     for r in range(dg.n_nodes):
         # p = 0 is unconditional (rank 0 reads an all-INF row)
-        min_pm, min_pd = m_ring[slots[r][0]], d_ring[slots[r][0]]
+        mins = [rg[slots[r][0]] for rg in rings]
         for p in range(1, P):
             if valid[r][p] == 1:
-                min_pm = torch.minimum(min_pm, m_ring[slots[r][p]])
-                min_pd = torch.minimum(min_pd, d_ring[slots[r][p]])
-        D = torch.minimum(min_pm + (o + e), min_pd + e)
-        diag = _shift_right(min_pm) + torch.where(
+                mins = [torch.minimum(a, rg[slots[r][p]])
+                        for a, rg in zip(mins, rings)]
+        min_pm, min_pd = mins[0], mins[1]
+        Ds = [torch.minimum(min_pm + (o + e), min_pd + ed)]
+        if two_piece:
+            Ds.append(torch.minimum(min_pd, mins[2]) + e)
+        A = _shift_right(min_pm) + torch.where(
             qshift == symbols[r], 0, x).to(torch.int32)
-        A = torch.minimum(diag, D)
+        for D in Ds:
+            A = torch.minimum(A, D)
         is_end = r == dg.end_rank_i
         if r == 0 or (free_start and not is_end):
             A[:, 0] = torch.clamp(A[:, 0], max=0)
         if is_end:
             M = end_row = min_pm.clone()
-            D = torch.full_like(D, INF)
+            Ds = [torch.full_like(D, INF) for D in Ds]
         else:
             pref = _prefix_min(A - ej, cap)
             I = torch.clamp(_shift_right(pref) + o + ej, max=INF)
             M = torch.minimum(A, I)
-            D = torch.clamp(D, max=INF)
-        m_ring[wslots[r]] = M
-        d_ring[wslots[r]] = D
+            Ds = [torch.clamp(D, max=INF) for D in Ds]
+        for rg, row in zip(rings, [M] + Ds):
+            rg[wslots[r]] = row
         if best is not None and permitted[r] == 1:
             if ends:
                 bestr = torch.where(M < best, r, bestr).to(torch.int32)
@@ -695,7 +860,11 @@ def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
     bounded = end_ok is not None
     if ends and not bounded:
         raise ValueError("end ranks need an ends-free span (end_ok)")
-    variant = 2 if ends else int(bounded)
+    if costs.is_two_piece and bounded:
+        raise ValueError("the two-piece full fill takes the global span")
+    variant = FILL_BOUNDED_ENDS if ends else (
+        FILL_BOUNDED if bounded else (
+            FILL_GLOBAL_2P if costs.is_two_piece else FILL_GLOBAL))
     lib = build.load()
     dev = qshift.device
     B, L = qshift.shape
@@ -719,8 +888,8 @@ def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
             dg.write_slots.data_ptr(),
             end_ok.data_ptr() if bounded else None, qshift.data_ptr(), B, L,
             dg.n_nodes, dg.end_rank_i, dg.window,
-            int(dg.pred_slots.shape[1]), costs.gap_open, costs.gap_extend,
-            costs.mismatch, _scan_cap(L, max_run), int(free_start),
+            int(dg.pred_slots.shape[1]), *fill_constants(costs),
+            _scan_cap(L, max_run), int(free_start),
             out.data_ptr(), ranks.data_ptr() if ends else None,
             gws.data_ptr(), gws.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -736,7 +905,8 @@ def _launch_fill(dg, qshift, costs):
 def fill_end_rows(dg, qshift: torch.Tensor, costs) -> torch.Tensor:
     """(B, L) end rows of the full-width fill: the kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
-    fn = _dispatch(_launch_fill, fill_end_rows_plain, qshift, "full fill")
+    fn = _dispatch(_launch_fill, fill_end_rows_plain, qshift, "full fill",
+                   costs)
     return fn(dg, qshift, costs)
 
 
@@ -752,6 +922,40 @@ def fill_scores(dg, qshift: torch.Tensor, lengths: torch.Tensor,
 def fill_scores_plain(dg, qshift: torch.Tensor, lengths: torch.Tensor,
                       costs) -> torch.Tensor:
     return _at_lengths(fill_end_rows_plain(dg, qshift, costs), lengths)
+
+
+# ---- B12: global span, two-piece costs ------------------------------------
+
+def fill_end_rows_2p_plain(dg, qshift: torch.Tensor, costs) -> torch.Tensor:
+    """Plain version of the two-piece full-fill kernel: the (B, L) untilted
+    end row (global alignment)."""
+    return _fill_plain(dg, qshift, costs)
+
+
+def _launch_fill_2p(dg, qshift, costs):
+    return _launch_full_fill(fill_end_rows_2p, dg, qshift, costs)
+
+
+def fill_end_rows_2p(dg, qshift: torch.Tensor, costs) -> torch.Tensor:
+    """(B, L) end rows of the two-piece full-width fill: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    fn = _dispatch(_launch_fill_2p, fill_end_rows_2p_plain, qshift,
+                   "two-piece full fill", costs, two_piece=True)
+    return fn(dg, qshift, costs)
+
+
+fill_end_rows_2p.launches = 0
+
+
+def fill_scores_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor,
+                   costs) -> torch.Tensor:
+    """(B,) exact two-piece global scores by the full-width fill."""
+    return _at_lengths(fill_end_rows_2p(dg, qshift, costs), lengths)
+
+
+def fill_scores_2p_plain(dg, qshift: torch.Tensor, lengths: torch.Tensor,
+                         costs) -> torch.Tensor:
+    return _at_lengths(fill_end_rows_2p_plain(dg, qshift, costs), lengths)
 
 
 # ---- B4: ends-free span --------------------------------------------------
@@ -775,7 +979,7 @@ def bounded_best_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
     the kernel on a CUDA tensor, the plain version on a CPU tensor.
     ``max_run`` truncates the insertion scan (0: the whole row)."""
     fn = _dispatch(_launch_bounded, bounded_best_rows_plain, qshift,
-                   "bounded fill")
+                   "bounded fill", costs)
     return fn(dg, qshift, costs, free_start, end_ok, max_run)
 
 
@@ -820,7 +1024,7 @@ def bounded_end_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
     ends-free span: the kernel on a CUDA tensor, the plain version on a CPU
     tensor.  ``max_run`` truncates the insertion scan (0: the whole row)."""
     fn = _dispatch(_launch_bounded_ends, bounded_end_rows_plain, qshift,
-                   "bounded fill with end ranks")
+                   "bounded fill with end ranks", costs)
     return fn(dg, qshift, costs, free_start, end_ok, max_run)
 
 

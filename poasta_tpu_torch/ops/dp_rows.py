@@ -16,9 +16,11 @@ import torch
 INF = 1 << 28
 
 
-def _shift_right(t: torch.Tensor, k: int = 1) -> torch.Tensor:
-    """t[..., j-k] at lane j, INF at lanes < k."""
-    pad = torch.full(t.shape[:-1] + (k,), INF, dtype=t.dtype, device=t.device)
+def _shift_right(t: torch.Tensor, k: int = 1,
+                 fill: int = INF) -> torch.Tensor:
+    """t[..., j-k] at lane j, ``fill`` at lanes < k (0 < k < lanes)."""
+    pad = torch.full(t.shape[:-1] + (k,), fill, dtype=t.dtype,
+                     device=t.device)
     return torch.cat([pad, t[..., :-k]], dim=-1)
 
 

@@ -1,6 +1,7 @@
-"""Batch read mapping against a static graph: port of the single-device,
-one-piece part of ``poasta_tpu/parallel/mapper.py`` (scoring and alignment
-of global and ends-free spans)."""
+"""Batch read mapping against a static graph: port of the single-device
+part of ``poasta_tpu/parallel/mapper.py`` (scoring and alignment of global
+and ends-free spans under one-piece costs, and of the global span under
+two-piece costs)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from ..aligner.seeds import (
     subset_hits,
 )
 from ..aligner.wavefront import (
+    TWO_PIECE_ENDS_FREE,
     DeviceGraph,
     backtrace_dense,
     dp_fill_ends_free_with_ends,
@@ -39,15 +41,20 @@ class BatchMapper:
     The graph is flattened and placed on ``device`` once (None: the card;
     raises without one).  Scores come from the banded scorer (exact by
     verify-and-retry, the full-width fill as its last resort), under
-    ``aln_type``: None or Global, or an ``EndsFree`` span.  Alignments of
-    a global span come from dense tables and a host backtrace for small
-    batches, and otherwise from the device traceback, with the native
-    engine's banded backtrace for the reads the trace leaves unverified.
-    Alignments of an ends-free span (see :meth:`_align_batch_ends_free`)
-    come from a fill that also returns each read's end state (seeded
-    corridors on large graphs once a batch has taught the score rates, the
-    full-width fill otherwise), then the device traceback anchored at that
-    end state, with the native engine's anchored corridor for the rest.
+    ``aln_type``: None or Global, or an ``EndsFree`` span.  ``costs``:
+    ``GapAffine``, or ``GapAffine2Piece`` under the global span (an
+    ``EndsFree`` span with two-piece costs raises: not ported yet).
+    Alignments of a global span come from dense tables and a host
+    backtrace for small one-piece batches, and otherwise from the device
+    traceback, with the native engine's banded backtrace for the reads the
+    trace leaves unverified; two-piece costs always take the banded route
+    and skip the trace (it is one-piece), so the native engine backtraces
+    every read, seeded with its exact device score.  Alignments of an
+    ends-free span (see :meth:`_align_batch_ends_free`) come from a fill
+    that also returns each read's end state (seeded corridors on large
+    graphs once a batch has taught the score rates, the full-width fill
+    otherwise), then the device traceback anchored at that end state, with
+    the native engine's anchored corridor for the rest.
     """
 
     # dense tables cost Np*B*L*12 bytes; past this budget align_batch takes
@@ -60,11 +67,11 @@ class BatchMapper:
 
     def __init__(self, graph, costs, device=None, batch_size: int = 64,
                  aln_type=None):
-        if getattr(costs, "is_two_piece", False):
-            raise NotImplementedError("two-piece costs are not ported yet")
         if aln_type is not None \
                 and not isinstance(aln_type, (Global, EndsFree)):
             raise TypeError(f"unknown alignment span {aln_type!r}")
+        if costs.is_two_piece and isinstance(aln_type, EndsFree):
+            raise NotImplementedError(TWO_PIECE_ENDS_FREE)
         self.graph = graph
         self.flat = graph.flatten()
         self.dg = DeviceGraph.build(self.flat, device=device)
@@ -98,9 +105,10 @@ class BatchMapper:
     def align_batch(self, queries, prescored=None):
         """[(score, alignment)] of a read batch, in input order.
 
-        Small shapes: one fill returns dense M/I/D tables and the host
-        backtraces them.  Past :data:`DENSE_TABLE_BUDGET`: exact banded
-        scores, then the device traceback (see :meth:`_align_batch_banded`).
+        Small one-piece shapes: one fill returns dense M/I/D tables and the
+        host backtraces them.  Past :data:`DENSE_TABLE_BUDGET`, and at any
+        size under two-piece costs (the dense tables are one-piece): exact
+        banded scores, then the traceback (see :meth:`_align_batch_banded`).
         ``prescored`` is :meth:`prescore`'s token for this batch.
         """
         if not queries:
@@ -115,7 +123,8 @@ class BatchMapper:
             return self._align_batch_ends_free(queries, qshift, lengths,
                                                pre_scores=pre_scores)
         B, L = int(qshift.shape[0]), int(qshift.shape[1])
-        if self._table_bytes(B, L) > self.DENSE_TABLE_BUDGET:
+        if self.costs.is_two_piece \
+                or self._table_bytes(B, L) > self.DENSE_TABLE_BUDGET:
             return self._align_batch_banded(queries, qshift, lengths,
                                             scores=pre_scores)
         self.last_banded_stats = {"device_traced": 0, "host_backtraced": 0}
@@ -154,9 +163,12 @@ class BatchMapper:
     def takes_banded_path(self, queries) -> bool:
         """Whether align_batch would take the banded route for this batch,
         from the raw reads (no packing, no upload): the global-span batches
-        whose scoring :meth:`prescore` can overlap with alignment."""
+        whose scoring :meth:`prescore` can overlap with alignment (every
+        batch under two-piece costs)."""
         if self.ends_free:
             return False
+        if self.costs.is_two_piece:
+            return True
         maxlen = max((len(q) for q in queries), default=0)
         L = ((maxlen + 1 + 127) // 128) * 128  # pack_queries' padding rule
         return self._table_bytes(len(queries), L) > self.DENSE_TABLE_BUDGET
@@ -190,14 +202,16 @@ class BatchMapper:
         native backtrace.  Reads the trace returns as None (unverified at
         every tier, INF or empty) take ``NativeAligner.align_banded``
         seeded with their exact score, on a thread per core.  An error in
-        the trace propagates."""
+        the trace propagates.  Two-piece costs skip the trace (its kernel
+        is one-piece, as the reference's is): every read takes the native
+        backtrace, which must reproduce the device score."""
         self._init_banded()
         na = self._native
         if scores is None:
             scores = self._device_scores(qshift, lengths)
         out = [None] * len(queries)
         stats = {"device_traced": 0, "host_backtraced": 0}
-        if trace_enabled():
+        if not self.costs.is_two_piece and trace_enabled():
             traced = trace_align(self.dg, self.flat, qshift, lengths,
                                  self.costs, scores)
             for b, aln in enumerate(traced):

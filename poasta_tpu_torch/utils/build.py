@@ -104,12 +104,12 @@ def _load() -> ctypes.CDLL:
     lib.poasta_banded_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pll]
     lib.poasta_banded_plan.restype = i
     lib.poasta_banded_fill.argtypes = (
-        [i] + [p] * 13 + [i] * 15 + [p, p, ll, p])
+        [i] + [p] * 13 + [i] * 16 + [p, p, ll, p])
     lib.poasta_banded_fill.restype = i
     lib.poasta_fill_plan.argtypes = [i, i, i, pi, pi, pi, pll]
     lib.poasta_fill_plan.restype = i
     lib.poasta_full_fill.argtypes = (
-        [i] + [p] * 6 + [i] * 11 + [p, p, p, ll, p])
+        [i] + [p] * 6 + [i] * 12 + [p, p, p, ll, p])
     lib.poasta_full_fill.restype = i
     lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll]
     lib.poasta_trace_plan.restype = i

@@ -25,9 +25,11 @@ from poasta_tpu_torch import (
     included,
     pack_queries,
 )
+from poasta_tpu_torch.aligner import GapAffine2Piece
 from poasta_tpu_torch.aligner import banded as tbd
 from poasta_tpu_torch.aligner.wavefront import (
     DeviceGraph,
+    alignment_cost,
     dp_fill_scores_ends_free,
     ends_free_device_params,
 )
@@ -38,6 +40,8 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 COSTS = GapAffine(4, 2, 6)
+# the penalties of poasta align -n 4 -g 8,24 -e 2,1
+COSTS_2P = GapAffine2Piece(4, 2, 8, 1, 24)
 
 
 @pytest.fixture(scope="module")
@@ -586,3 +590,145 @@ def test_seeded_align_batch_matches_full_fill_route(card, monkeypatch):
     full.align_batch(reads)
     assert [(s, list(a)) for s, a in full.align_batch(reads)] == pairs
     assert full.last_seed_stats is None
+
+
+# ---- two-piece costs: B16, B17, B12 ------------------------------------
+
+
+def _prep_2p(flat, dg, lengths, ub, L):
+    lens = lengths.cpu().numpy()
+    ws, width, _, _ = tbd.band_windows(flat, int(lens.min()), int(lens.max()),
+                                       COSTS_2P, ub)
+    return cf.prepare_banded(dg, COSTS_2P, (ws // 128) * 128, width + 128, L)
+
+
+@pytest.mark.parametrize("ub", [250, 600])
+@pytest.mark.parametrize("capped", [False, True])
+def test_banded_2p_kernel_matches_plain(card, ub, capped):
+    """B16: end rows equal the plain version's, over-estimated rows
+    included; verified scores equal the native engine's."""
+    g, reads = _case(31, 400, 64, div=0.05)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    L = int(q.shape[1])
+    prep = _prep_2p(flat, dg, lengths, ub, L)
+    q = torch.nn.functional.pad(q, (0, max(0, prep["L"] - L)))
+    max_run = tbd.ins_run_cap(COSTS_2P, ub, prep["width"]) if capped else 0
+    before = cf.banded_end_rows_2p.launches
+    got = cf.banded_end_rows_2p(dg, q, COSTS_2P, prep, max_run)
+    torch.cuda.synchronize()
+    assert cf.banded_end_rows_2p.launches == before + 1
+    assert torch.equal(got, cf.banded_end_rows_2p_plain(dg, q, COSTS_2P,
+                                                        prep, max_run))
+    scores = cf.banded_scores_2p(dg, q, lengths, COSTS_2P, prep,
+                                 max_run).cpu().numpy()
+    ok = scores <= ub
+    assert ok.any()
+    na = NativeAligner(g)
+    assert [int(s) for s in scores[ok]] == \
+        [na.align_banded(r, COSTS_2P)[0] for r, v in zip(reads, ok) if v]
+
+
+def test_banded_2p_kernel_past_the_reference_smem_budget(card):
+    """B16 on a 22k-rank graph (the reference's scalar-prefetch budget
+    sends such graphs to its streamed kernels): rank tables come from
+    global memory at any size."""
+    g, reads = _case(32, 22000, 4, div=0.002)
+    flat = g.flatten()
+    assert flat.n_nodes > 22000
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    ub = 1500
+    prep = _prep_2p(flat, dg, lengths, ub, int(q.shape[1]))
+    max_run = tbd.ins_run_cap(COSTS_2P, ub, prep["width"])
+    got = cf.banded_end_rows_2p(dg, q, COSTS_2P, prep, max_run)
+    assert torch.equal(got, cf.banded_end_rows_2p_plain(dg, q, COSTS_2P,
+                                                        prep, max_run))
+    scores = cf.banded_scores_2p(dg, q, lengths, COSTS_2P, prep,
+                                 max_run).cpu().numpy()
+    assert (scores <= ub).all()
+    na = NativeAligner(g)
+    assert [int(s) for s in scores[:2]] == \
+        [na.align_banded(r, COSTS_2P)[0] for r in reads[:2]]
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_drift_2p_kernel_matches_plain(card, capped):
+    """B17: all three rings roll with the read's frame as the literal rolls
+    of the plain version do."""
+    g, reads = _sv_case(33)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    lens = lengths.cpu().numpy()
+    n_min, n_max = int(lens.min()), int(lens.max())
+    S = tbd.drift_steps_for(n_min, n_max)
+    ub = 80
+    ws, width, sr = tbd.band_windows_drift(flat, n_min, n_max, COSTS_2P, ub,
+                                           S)
+    L = int(q.shape[1])
+    assert width < L  # the scorer takes drift only narrower than the row
+    Lp = max(L, -(-(int(ws.max()) + width) // 128) * 128)
+    prep = cf.prepare_banded_drift(dg, COSTS_2P, ws, width, sr, S, Lp)
+    qpad = torch.nn.functional.pad(q, (prep["mq"], Lp - L))
+    assert prep["mq"] > 0 and S >= 4
+    max_run = tbd.ins_run_cap(COSTS_2P, ub, width) if capped else 0
+    nbs = cf.drift_units(lengths, n_min)
+    before = cf.drift_end_rows_2p.launches
+    got = cf.drift_end_rows_2p(dg, qpad, nbs, COSTS_2P, prep, max_run)
+    torch.cuda.synchronize()
+    assert cf.drift_end_rows_2p.launches == before + 1
+    assert torch.equal(got, cf.drift_end_rows_2p_plain(dg, qpad, nbs,
+                                                       COSTS_2P, prep,
+                                                       max_run))
+    scores = cf.drift_scores_2p(dg, qpad, lengths, COSTS_2P, prep, n_min,
+                                max_run=max_run).cpu().numpy()
+    ok = scores <= ub
+    assert ok.sum() >= len(reads) // 4
+    na = NativeAligner(g)
+    assert [int(s) for s in scores[ok][:8]] == \
+        [na.align_banded(r, COSTS_2P)[0] for r, v in zip(reads, ok) if v][:8]
+
+
+@pytest.mark.parametrize("read_len", [None, 12000])
+def test_fill_2p_kernel_matches_plain(card, read_len):
+    """B12: short rows keep the working set in shared memory; a 12 kb row
+    puts even the scratch rows in global memory."""
+    g, reads = _case(34, 250, 64 if read_len is None else 2,
+                     read_len=read_len)
+    dg = DeviceGraph.build(g.flatten(), device=card)
+    q, lengths = pack_queries(reads, device=card)
+    plan = cf.fill_plan(dg.window, int(q.shape[1]), two_piece=True)
+    assert plan["placement"] == ("smem" if read_len is None else "global")
+    before = cf.fill_end_rows_2p.launches
+    got = cf.fill_end_rows_2p(dg, q, COSTS_2P)
+    torch.cuda.synchronize()
+    assert cf.fill_end_rows_2p.launches == before + 1
+    assert torch.equal(got, cf.fill_end_rows_2p_plain(dg, q, COSTS_2P))
+    na = NativeAligner(g)
+    scores = cf.fill_scores_2p(dg, q, lengths, COSTS_2P).cpu().numpy()
+    assert [int(s) for s in scores[:4]] == \
+        [na.align_banded(r, COSTS_2P)[0] for r in reads[:4]]
+
+
+def test_two_piece_batch_mapper_on_card(card):
+    """score_batch under two-piece costs equals the native engine; every
+    align_batch alignment reproduces its score (the leading insertion run
+    a backtrace does not emit as pairs counted back in)."""
+    g, reads = _case(35, 600, 64, div=0.04)
+    mapper = BatchMapper(g, COSTS_2P, device=card)
+    before = cf.banded_end_rows_2p.launches
+    scores = mapper.score_batch(reads)
+    assert cf.banded_end_rows_2p.launches > before
+    na = NativeAligner(g)
+    assert list(scores) == [na.align_banded(r, COSTS_2P)[0] for r in reads]
+    out = mapper.align_batch(reads)
+    assert [s for s, _ in out] == list(scores)
+    assert mapper.last_banded_stats == {"device_traced": 0,
+                                        "host_backtraced": len(reads)}
+    for r, (s, aln) in zip(reads, out):
+        lead = next(p.qpos for p in aln if p.qpos is not None)
+        extra = 0 if lead == 0 else (COSTS_2P.gap_open + COSTS_2P.gap_extend
+                                     + (lead - 1) * COSTS_2P.gap_extend2)
+        assert alignment_cost(g, r, aln, COSTS_2P) + extra == s

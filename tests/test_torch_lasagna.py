@@ -302,8 +302,9 @@ def test_lasagna_gaf_golden(tmp_path, reference_tests_dir):
 
 def test_batch_mapper_rejects_unported_spans():
     """An ends-free span scores and aligns; a span object of another
-    package is refused by name, not guessed at; two-piece costs are not
-    ported."""
+    package is refused by name, not guessed at; an ends-free span with
+    two-piece costs is not ported yet (two-piece costs under the global
+    span are)."""
     from poasta_tpu_torch import UNBOUNDED, EndsFree
     from poasta_tpu_torch import Global as PortGlobal
 
@@ -315,8 +316,14 @@ def test_batch_mapper_rejects_unported_spans():
     assert [s for s, _ in semi.align_batch([b"ACGT"])] == [0]
     from poasta_tpu_torch.aligner import GapAffine2Piece
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        BatchMapper(g, GapAffine2Piece(4, 2, 6, 1, 20), device="cpu")
+    two_piece = GapAffine2Piece(4, 2, 6, 1, 20)
+    with pytest.raises(NotImplementedError,
+                       match="two-piece ends-free is not ported yet"):
+        BatchMapper(g, two_piece, device="cpu",
+                    aln_type=EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED,
+                                      UNBOUNDED))
+    assert np.all(BatchMapper(g, two_piece, device="cpu").score_batch(
+        [b"ACGT"]) > 0)
     with pytest.raises(TypeError):
         BatchMapper(g, COSTS, device="cpu", aln_type=Global())
     assert np.all(BatchMapper(g, COSTS, device="cpu", aln_type=PortGlobal()

@@ -30,6 +30,7 @@ from poasta_tpu_torch import (
     pack_queries,
 )
 from poasta_tpu_torch import native as port_native
+from poasta_tpu_torch.aligner.fusion_assist import DeviceSeedPrefetcher
 from poasta_tpu_torch.ops import trace as tr
 from poasta_tpu_torch.utils.device import NoDeviceError, resolve_device
 
@@ -44,7 +45,7 @@ COPIED = [
     "io/__init__.py", "io/bincode.py", "io/fasta.py", "io/gaf.py",
     "io/gfa.py", "io/graph_io.py",
     "bubbles/__init__.py", "bubbles/finder.py", "bubbles/index.py",
-    "utils/errors.py", "native/engine.cpp",
+    "utils/errors.py", "utils/debug.py", "native/engine.cpp",
 ]
 COSTS = GapAffine(4, 2, 6)
 
@@ -77,8 +78,11 @@ def test_port_imports_nothing_of_the_jax_package():
     no source line of the port or of its ``chip_*.py`` scripts imports
     them."""
     code = ("import sys, poasta_tpu_torch, poasta_tpu_torch.cli.lasagna, "
-            "poasta_tpu_torch.convert, poasta_tpu_torch.ops.trace, "
-            "poasta_tpu_torch.ops.seed, poasta_tpu_torch.aligner.seeds, "
+            "poasta_tpu_torch.cli.poasta, poasta_tpu_torch.convert, "
+            "poasta_tpu_torch.ops.trace, poasta_tpu_torch.ops.seed, "
+            "poasta_tpu_torch.ops.dp_rows_2p, poasta_tpu_torch.utils.debug, "
+            "poasta_tpu_torch.aligner.seeds, "
+            "poasta_tpu_torch.aligner.fusion_assist, "
             "poasta_tpu_torch.utils.build; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'poasta_tpu'"
             " or m.startswith(('jax.', 'poasta_tpu.'))]; assert not bad, bad")
@@ -114,9 +118,10 @@ def _small_graph(cls=POAGraph):
     lambda g: tr.build_trace_schedule(g.flatten(), np.array([4]),
                                       np.array([2]), 256, 64),
     lambda g: resolve_device(),
+    lambda g: DeviceSeedPrefetcher(COSTS),
 ], ids=["BatchMapper", "BandedScorer", "DeviceGraph.build", "pack_queries",
         "ends_free_params_from_reference", "build_trace_schedule",
-        "resolve_device"])
+        "resolve_device", "DeviceSeedPrefetcher"])
 def test_no_device_named_means_the_card(entry):
     """With no card here the default raises; it never becomes the CPU."""
     if torch.cuda.is_available():
