@@ -17,7 +17,10 @@ events, median of 5 after a warm-up:
 * B1 ``banded_end_rows`` at those inputs (1024 reads, Wb 3328);
 * B2 ``fill_end_rows`` on 134 mixed-divergence reads at L 5120;
 * B4 ``bounded_best_rows`` on 256 fragments at L 4096, uncapped;
-* B5 ``ef_best_rows`` at the recorded inputs (1024 fragments, Wb 4096).
+* B5 ``ef_best_rows`` at the recorded inputs (1024 fragments, Wb 4096);
+* B7 ``bounded_end_rows`` on the bench's pangenome configuration under the
+  semi-global span: 64 reads of ~5 kb, 50,002 ranks, cap 4096, as the
+  first batch of ``lasagna align -m semi-global`` gives it.
 
 Each line carries a checksum of the kernel's output, so two trees can be
 seen to compute the same rows, and the card's name and power limit.  The
@@ -41,20 +44,24 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from chip_smoke import (
         N_READS,
+        PAN_BATCH,
         _time_ms,
         fragment_reads,
         mixed_reads,
+        pangenome_workload,
         uniform_workload,
     )
     from poasta_tpu_torch import (
         UNBOUNDED,
         BatchMapper,
+        DeviceGraph,
         EndsFree,
         GapAffine,
         included,
         pack_queries,
     )
     from poasta_tpu_torch.aligner import banded as banded_mod
+    from poasta_tpu_torch.aligner.wavefront import ends_free_device_params
     from poasta_tpu_torch.ops import cuda_fill as cf
     from poasta_tpu_torch.utils import build
     from poasta_tpu_torch.utils.device import card_info, cuda_device
@@ -115,6 +122,16 @@ def main() -> int:
            lambda: cf.bounded_best_rows(dg, q256, c, fs, end_ok, 0))
     report("B5", f"{int(q.shape[0])} reads, Wb {prep['width']}, max_run {mr}",
            lambda: cf.ef_best_rows(dg, q, c, prep, fs, end_ok, mr))
+
+    pan_graph, pan_reads = pangenome_workload()
+    flat = pan_graph.flatten()
+    dg = DeviceGraph.build(flat, device=dev)
+    q, lengths = pack_queries(pan_reads[:PAN_BATCH], device=dev)
+    fs, end_ok, _ = ends_free_device_params(flat, semi, lengths,
+                                            dg.n_nodes_padded)
+    report("B7", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
+           f"{dg.n_nodes} ranks, free_start {fs}, max_run 4096",
+           lambda: cf.bounded_end_rows(dg, q, costs, fs, end_ok, 4096)[0])
     return 0
 
 

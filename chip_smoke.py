@@ -108,11 +108,33 @@ just after:
 * 9e the port's MSA CLI, ``python -m poasta_tpu_torch.cli.poasta align
   --engine banded --device-assist on -n 4 -g 8,24 -e 2,1``, on 16
   sequences of 10 kb (seed 23) at 3%, every fourth with a 1.5 kb deletion,
-  with ``-O fasta`` and ``-O gfa``: the bytes equal the ``--device-assist
-  off`` runs', and every score the assist handed over equals the native
-  engine's against the graph it was computed on;
+  with ``-O fasta``: the bytes equal the ``--device-assist off`` run's,
+  and every score the assist handed over equals the native engine's
+  against the graph it was computed on;
 * 9f holds B12, B16 and B17 against their plain versions at the inputs
   9a-9c gave them.
+
+Phase 10 drives two-piece costs under ends-free spans, the sixth main
+path, with the same costs, each run with every launch counter zeroed just
+before and read just after (no banded, seeded or traced kernel serves it):
+
+* 10a the mixed-length SV traffic under the bench's bounded span through
+  ``BatchMapper.score_batch`` (a warm-up, then three timed): the capped
+  ladder over the bounded fill B13; reads 0-7 against B13's plain version
+  uncapped; then ``align_batch`` on 64 reads: the ladder over B14, every
+  read through the native anchored corridor; every alignment costs its
+  score, and every score is ``score_batch``'s;
+* 10b the pangenome configuration under the CLI's semi-global span:
+  ``align_batch`` on 64 reads, a warm-up and a timed call: B14 over 50,002
+  ranks (the TPU's streamed twin B15's size), no seeded fill (B8) and no
+  trace (B18) launched, every read anchored, every alignment costing its
+  score;
+* 10c the free graph ends of the global fill (B2f: B4 under the end mask;
+  B12f: B13 under it) through ``dp_fill_scores(free_start=, free_end=)`` on
+  the uniform graph with 64 pieces of 1,000 bases cut from its reads, all
+  four flag pairs under both cost models; each against its plain version
+  per flag pair, then B13 and B14 at the inputs 10a and 10b gave them (B14
+  on 8 reads of its call).
 
 The ``kernels`` line gives, for every kernel, its launches on the main
 paths, its time and its plain version's at the main path's shapes, and
@@ -174,6 +196,13 @@ B12_REPLACES = "poasta_tpu/ops/pallas_fill.py:1837"
 B16_REPLACES = "poasta_tpu/ops/pallas_fill.py:3527"
 B17_REPLACES = "poasta_tpu/ops/pallas_fill.py:3330"
 MSA_SEQS, MSA_LEN, MSA_SEED, MSA_DIV, MSA_CUT = 16, 10000, 23, 0.03, 1500
+B13_REPLACES = "poasta_tpu/ops/pallas_fill.py:1300"
+B14_REPLACES = "poasta_tpu/ops/pallas_fill.py:1457"
+B2F_REPLACES = "poasta_tpu/ops/pallas_fill.py:304"
+B12F_REPLACES = "poasta_tpu/ops/pallas_fill.py:1837"
+# phase 10c: 64 pieces of this many bases cut from the uniform reads
+FREE_SEED, FREE_READ_LEN = 29, 1000
+FREE_FLAGS = [(False, False), (True, False), (False, True), (True, True)]
 
 
 def _mutate(rng, s, d, target_len=None):
@@ -679,10 +708,15 @@ def main() -> int:
     results.update(ef_results)
 
     # ---- 8. ends-free alignment on the pangenome configuration ------------
-    pan_results, pan_launches = pangenome_phases(card, dev, costs)
+    pan_results, pan_launches, pan_workload = pangenome_phases(card, dev,
+                                                               costs)
 
     # ---- 9. two-piece costs under the global span --------------------------
     tp_results, tp_launches = two_piece_phases(card, dev, graph, reads, base)
+
+    # ---- 10. two-piece costs under ends-free spans; free graph ends ---------
+    ef2_results, ef2_launches = ends_free_two_piece_phases(
+        card, dev, graph, reads, *pan_workload)
 
     def by_call(name):
         """A fill kernel's launches in each main-path call that used it."""
@@ -748,6 +782,20 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(calls.values()),
                         "launches_by_call": calls, **tp_results[name]})
+    for name, kernel, replaces in (
+            ("B13", "full_fill_kernel<bounded, two-piece>", B13_REPLACES),
+            ("B14", "full_fill_kernel<bounded, ends, two-piece>",
+             B14_REPLACES),
+            ("B2f", "full_fill_kernel<bounded> under free_end_mask",
+             B2F_REPLACES),
+            ("B12f", "full_fill_kernel<bounded, two-piece> under "
+             "free_end_mask", B12F_REPLACES)):
+        calls = {call: n[name] for call, n in ef2_launches.items() if n[name]}
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": f"poasta_tpu_torch/csrc/{full}",
+                        "replaces": replaces,
+                        "launches": sum(calls.values()),
+                        "launches_by_call": calls, **ef2_results[name]})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} launched on no main path")
@@ -1650,7 +1698,7 @@ def pangenome_phases(card, dev, costs):
         per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8))
     results["B18"]["reads_compared"] = 8
     _phase_done("8d B7, B8, B18 free_start at the main path's shapes")
-    return results, launches
+    return results, launches, (graph, reads)
 
 
 def msa_fasta(directory):
@@ -1912,7 +1960,7 @@ def two_piece_phases(card, dev, graph, reads, base):
                                   rec_score), \
                 mock.patch.object(fa.DeviceSeedPrefetcher, "close",
                                   rec_close):
-            for out_type in ("fasta", "gfa"):
+            for out_type in ("fasta",):
                 zero()
                 walls[(out_type, "on")], on_bytes = msa(out_type, "on")
                 n9e = read(f"poasta align -O {out_type} assist on")
@@ -1996,6 +2044,246 @@ def two_piece_phases(card, dev, graph, reads, base):
         dg, int(q.shape[0]), L, L, L, tilted=False, per_pred=PRED_OPS_2P,
         per_rank=RECURRENCE_OPS_2P))
     _phase_done("9f B12, B16, B17 at the main paths' shapes")
+    return results, launches
+
+
+def ends_free_two_piece_phases(card, dev, uniform_graph, uniform_reads,
+                               pan_graph, pan_reads):
+    """Phases 10a-10c; returns (kernel comparisons of B13, B14, B2f and B12f,
+    their launches per main-path call)."""
+    import numpy as np
+    import torch
+
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        DeviceGraph,
+        EndsFree,
+        GapAffine,
+        included,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import GapAffine2Piece
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.ops import cuda_fill as cf
+    from poasta_tpu_torch.ops import seed as sd
+    from poasta_tpu_torch.ops import trace as tr
+
+    costs = GapAffine2Piece(*COSTS_2P)
+    costs_1p = GapAffine(4, 2, 6)
+    bounded = EndsFree(UNBOUNDED, included(50), included(0), included(50))
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    wrappers = {"B13": cf.bounded_best_rows_2p, "B14": cf.bounded_end_rows_2p,
+                "B2f": cf.free_fill_rows, "B12f": cf.free_fill_rows_2p,
+                "B8": sd.seed_end_states, "B18": tr.trace_fill}
+    launches, captured, on_main_path = {}, {}, [False]
+    real = {"B13": cf._launch_bounded_2p, "B14": cf._launch_bounded_ends_2p}
+
+    def keep(name):
+        # the widest batch of the main-path calls (the last such call)
+        def rec(*args, **kwargs):
+            B = int(args[1].shape[0])
+            if on_main_path[0] and B >= captured.get(name, (0,))[0]:
+                captured[name] = (B, args, kwargs)
+            return real[name](*args, **kwargs)
+        return rec
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+        on_main_path[0] = True
+
+    def read(call):
+        on_main_path[0] = False
+        launches[call] = {name: w.launches for name, w in wrappers.items()}
+        return launches[call]
+
+    def check_alignments(name, graph, reads, out, scores, mapper):
+        stats = mapper.last_ends_free_stats
+        if stats["device_traced"] != 0 or stats["anchored_ok"] != len(reads) \
+                or mapper.last_seed_stats is not None:
+            raise AssertionError(f"{name}: {stats}, seed stats "
+                                 f"{mapper.last_seed_stats}")
+        if [s for s, _ in out] != [int(s) for s in scores]:
+            raise AssertionError(f"{name}: align_batch scores differ from "
+                                 "score_batch's")
+        for r, (score, aln) in zip(reads, out):
+            cost = wavefront_mod.alignment_cost(graph, r, aln, costs)
+            if cost != score:
+                raise AssertionError(f"{name}: an alignment costs {cost}, "
+                                     f"scored {score}")
+
+    with mock.patch.object(cf, "_launch_bounded_2p", keep("B13")), \
+            mock.patch.object(cf, "_launch_bounded_ends_2p", keep("B14")):
+        # ---- 10a. mixed_len under the bench's bounded span ------------------
+        gsv, sv_reads = sv_workload(costs_1p)
+        m_sv = BatchMapper(gsv, costs, device=dev, aln_type=bounded)
+        zero()
+        sv_scores, el, raw = _timed_batches(m_sv, sv_reads, 3)
+        n10a = read("score_batch mixed_len bounded two-piece")
+        print(f"[ef two-piece] mixed_len, bounded span, score_batch: "
+              f"{N_READS / el:.2f} reads/s (median {el * 1e3:.1f} ms of 3 "
+              f"after a warm-up, {raw / el:.4e} raw cells/s), stats "
+              f"{m_sv.scorer.stats}, ub hints {m_sv.scorer._ub_hint}, "
+              f"launches {n10a}  [{card}]", flush=True)
+        if n10a["B13"] <= 0 or not (sv_scores < cf.INF).all():
+            raise AssertionError(f"10a: B13 never launched or a score is "
+                                 f"INF: {n10a}")
+        q8, l8 = pack_queries(sv_reads[:8], device=dev)
+        fs, end_ok, jlo = wavefront_mod.ends_free_device_params(
+            m_sv.flat, bounded, l8, m_sv.dg.n_nodes_padded, True)
+        t0 = time.perf_counter()
+        plain8 = cf.bounded_scores_2p_plain(m_sv.dg, q8, l8, costs, fs,
+                                            end_ok, jlo).cpu().numpy()
+        if not (plain8 == sv_scores[:8]).all():
+            raise AssertionError(f"10a: scores {sv_scores[:8]} but B13's "
+                                 f"plain version {plain8}")
+        print(f"[ef two-piece] reads 0-7 equal B13's plain version, uncapped "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        batch = sv_reads[:PAN_BATCH]
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m_sv.align_batch(batch)
+        align_s = time.perf_counter() - t0
+        n10a_al = read("align_batch mixed_len bounded two-piece")
+        check_alignments("10a", gsv, batch, out, sv_scores[:PAN_BATCH], m_sv)
+        print(f"[ef two-piece] mixed_len, bounded span, align_batch"
+              f"({PAN_BATCH}): {align_s:.2f} s ({PAN_BATCH / align_s:.2f} "
+              f"reads/s), {m_sv.last_ends_free_stats}, launches {n10a_al}; "
+              f"every alignment costs its score, every score is "
+              f"score_batch's  [{card}]", flush=True)
+        if n10a_al["B14"] <= 0:
+            raise AssertionError(f"10a: B14 never launched: {n10a_al}")
+        _phase_done("10a two-piece mixed_len, bounded span")
+
+        # ---- 10b. pangenome, semi-global: no seeding, no trace ---------------
+        m_pan = BatchMapper(pan_graph, costs, device=dev, aln_type=semi)
+        batch = pan_reads[:PAN_BATCH]
+        secs, outs = [], []
+        for i in range(2):
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(m_pan.align_batch(batch))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            n10b = read(f"align_batch pangenome semi-global two-piece "
+                        f"{'warm-up' if i == 0 else 'timed'}")
+            if n10b["B14"] <= 0 or n10b["B8"] or n10b["B18"]:
+                raise AssertionError(f"10b: launches {n10b}")
+        pan_scores = [s for s, _ in outs[1]]
+        if [s for s, _ in outs[0]] != pan_scores:
+            raise AssertionError("10b: the two calls' scores differ")
+        check_alignments("10b", pan_graph, batch, outs[1], pan_scores, m_pan)
+        print(f"[ef two-piece] pangenome, semi-global, align_batch"
+              f"({PAN_BATCH}) x2: {[round(t, 3) for t in secs]} s "
+              f"({PAN_BATCH / secs[1]:.2f} reads/s timed), "
+              f"{m_pan.last_ends_free_stats}, 0 seeded, 0 traced, ub hints "
+              f"{m_pan._ef_ub_hint}, launches {n10b}  [{card}]", flush=True)
+        _phase_done("10b two-piece pangenome align_batch")
+
+        # ---- 10c. B2f and B12f: the free-end full fills ----------------------
+        rng = random.Random(FREE_SEED)
+        short = []
+        for r in uniform_reads[:64]:
+            a = rng.randrange(0, len(r) - FREE_READ_LEN)
+            short.append(r[a:a + FREE_READ_LEN])
+        u_dg = DeviceGraph.build(uniform_graph.flatten(), device=dev)
+        qf, lf = pack_queries(short, device=dev)
+        free_scores = {}
+        for label, c in (("one-piece", costs_1p), ("two-piece", costs)):
+            for flags in FREE_FLAGS:
+                zero()
+                free_scores[(label, flags)] = wavefront_mod.dp_fill_scores(
+                    u_dg, qf, lf, c, free_start=flags[0],
+                    free_end=flags[1]).cpu().numpy()
+                read(f"dp_fill_scores {label} free_start={flags[0]} "
+                     f"free_end={flags[1]}")
+        for label in ("one-piece", "two-piece"):
+            glob = free_scores[(label, (False, False))]
+            for flags in FREE_FLAGS[1:]:
+                if not (free_scores[(label, flags)] <= glob).all():
+                    raise AssertionError(f"10c: {label} {flags} scores above "
+                                         "the global ones")
+        print(f"[ef two-piece] dp_fill_scores on the uniform graph "
+              f"({u_dg.n_nodes} ranks), 64 reads of {FREE_READ_LEN} bases, "
+              f"L {int(qf.shape[1])}: mean scores "
+              f"{ {f'{k[0]} {k[1]}': round(float(v.mean()), 1) for k, v in free_scores.items()} }",
+              flush=True)
+
+    # ---- the kernels against their plain versions --------------------------
+    results = {}
+    for name, label, c, wrapper in (
+            ("B2f", "one-piece", costs_1p, cf.free_fill_rows),
+            ("B12f", "two-piece", costs, cf.free_fill_rows_2p)):
+        by_flags = {}
+        for flags in FREE_FLAGS:
+            cmp = _compare(
+                f"{name} free_start={flags[0]} free_end={flags[1]}",
+                lambda f=flags: wrapper(u_dg, qf, c, *f),
+                lambda f=flags: cf.free_fill_rows_plain(u_dg, qf, c, *f),
+                card, reps=3)
+            at_lengths = cf._at_lengths(wrapper(u_dg, qf, c, *flags), lf)
+            if not (at_lengths.cpu().numpy()
+                    == free_scores[(label, flags)]).all():
+                raise AssertionError(f"10c: {name} {flags} rows disagree "
+                                     "with dp_fill_scores")
+            by_flags[f"{flags[0]}, {flags[1]}"] = cmp
+        results[name] = dict(by_flags["True, True"])
+        results[name]["ms_by_flags"] = {k: v["ms"]
+                                        for k, v in by_flags.items()}
+        mask = cf.free_end_mask(u_dg, True)
+        L = int(qf.shape[1])
+        two = c.is_two_piece
+        results[name].update(fill_bound(
+            u_dg, int(qf.shape[0]), L, L, L, tilted=False,
+            per_pred=PRED_OPS_2P if two else PRED_OPS,
+            per_rank=(RECURRENCE_OPS_2P if two else RECURRENCE_OPS)
+            + int(mask.sum()) / u_dg.n_nodes, table_cols=1))
+        print(f"[kernels] {name}: plan "
+              f"{cf.bounded_plan(u_dg.window, L, two_piece=two)}", flush=True)
+
+    _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B13"]
+    L = int(q.shape[1])
+    print(f"[kernels] B13 main path (10a): {int(q.shape[0])} reads, L {L}, "
+          f"{g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, "
+          f"{int(end_ok.sum())} permitted ranks, plan "
+          f"{cf.bounded_plan(g_dg.window, L, two_piece=True)}", flush=True)
+    results["B13"] = _compare(
+        "B13 main path",
+        lambda: cf.bounded_best_rows_2p(g_dg, q, c, fs, end_ok, max_run),
+        lambda: cf.bounded_best_rows_2p_plain(g_dg, q, c, fs, end_ok,
+                                              max_run), card, reps=3)
+    results["B13"].update(fill_bound(
+        g_dg, int(q.shape[0]), L, L, L, tilted=False, per_pred=PRED_OPS_2P,
+        per_rank=RECURRENCE_OPS_2P + int(end_ok.sum()) / g_dg.n_nodes,
+        table_cols=1))
+
+    _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B14"]
+    L = int(q.shape[1])
+    full_ms = _time_ms(lambda: cf.bounded_end_rows_2p(g_dg, q, c, fs, end_ok,
+                                                      max_run), 3)
+    # the plain version walks 50k ranks at about a millisecond each whatever
+    # the batch: the first 8 reads of the call
+    q8 = q[:8].contiguous()
+    print(f"[kernels] B14 main path (10b): {int(q.shape[0])} reads in the "
+          f"call ({full_ms:.3f} ms), compared and timed on its first 8; L {L},"
+          f" {g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, plan "
+          f"{cf.bounded_plan(g_dg.window, L, ends=True, two_piece=True)}",
+          flush=True)
+    results["B14"] = _compare(
+        "B14 main path (first 8 reads)",
+        lambda: cf.bounded_end_rows_2p(g_dg, q8, c, fs, end_ok, max_run),
+        lambda: cf.bounded_end_rows_2p_plain(g_dg, q8, c, fs, end_ok,
+                                             max_run), card, reps=3)
+    results["B14"].update(fill_bound(
+        g_dg, 8, L, L, 2 * L, tilted=False, per_pred=PRED_OPS_2P,
+        per_rank=RECURRENCE_OPS_2P
+        + ENDS_OPS * int(end_ok.sum()) / g_dg.n_nodes, table_cols=1))
+    results["B14"].update(reads_compared=8, whole_call_ms=full_ms,
+                          whole_call_reads=int(q.shape[0]))
+    _phase_done("10c B2f, B12f; B13, B14 at the main paths' shapes")
     return results, launches
 
 

@@ -8,7 +8,7 @@ with the full-width fills as the ladder's last resort), alignment
 backtrace for small batches, else the device traceback; ends-free spans:
 a fill that returns each read's end state, k-mer seeded corridors on
 large graphs or the full-width fill, then the traceback anchored there),
-two-piece costs (``GapAffine2Piece``) under the global span, the
+two-piece costs (``GapAffine2Piece``) under every span, the
 ``lasagna`` CLI (``python -m poasta_tpu_torch.cli.lasagna``) and the
 ``poasta`` MSA CLI (``python -m poasta_tpu_torch.cli.poasta``, whose
 ``--engine banded --device-assist`` scores on the card beside the native

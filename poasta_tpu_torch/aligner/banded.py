@@ -1,7 +1,8 @@
 """Banded wavefront scoring with verify-and-retry: port of the
 single-device part of ``poasta_tpu/aligner/banded.py`` (shared and
-drifting windows; one-piece costs under global and ends-free spans,
-two-piece costs under the global span).
+drifting windows under global and ends-free spans, one- and two-piece
+costs; two-piece costs under an ends-free span take the bounded full fill,
+as in ``poasta_tpu``, which has no banded kernel for them).
 
 Every rank fills only a window of offsets chosen so that all states whose
 completion-cost lower bound is <= ub lie inside it (min/max graph distance
@@ -38,7 +39,6 @@ from ..ops.cuda_fill import (
 from ..ops.dp_rows import INF
 from .costs import EndsFree
 from .wavefront import (
-    TWO_PIECE_ENDS_FREE,
     DeviceGraph,
     _round_up,
     dp_fill_scores,
@@ -283,16 +283,15 @@ def run_capped_ladder(costs, L: int, ub0: int, fill_capped, fill_plain):
 
 
 class BandedScorer:
-    """Exact banded scorer with tiered verify-and-retry: one-piece costs
-    under global or ends-free spans, two-piece costs (``GapAffine2Piece``)
-    under the global span.
+    """Exact banded scorer with tiered verify-and-retry, under one-piece
+    (``GapAffine``) or two-piece (``GapAffine2Piece``) costs.
 
     Usage: ``BandedScorer(flat, costs, aln_type=span).scores(qshift,
     lengths)`` with the batch from :func:`..wavefront.pack_queries`.
     ``device``: where the graph is laid out when no ``dg`` is given (None:
     the card).  ``aln_type``: None or Global for global alignment; an
-    ``EndsFree`` span scores through the ends-free fills, and with
-    two-piece costs raises (not ported yet).
+    ``EndsFree`` span scores through the ends-free fills; with two-piece
+    costs every batch takes the bounded full fill under the capped ladder.
     """
 
     # modelled fixed cost of one fill, in cells: biases the tier choice
@@ -305,8 +304,6 @@ class BandedScorer:
     def __init__(self, flat: FlatGraph, costs,
                  dg: Optional[DeviceGraph] = None, device=None,
                  aln_type=None):
-        if costs.is_two_piece and isinstance(aln_type, EndsFree):
-            raise NotImplementedError(TWO_PIECE_ENDS_FREE)
         self.flat = flat
         self.costs = costs
         self.aln_type = aln_type
@@ -334,7 +331,8 @@ class BandedScorer:
         """(free_start, end_ok, jlo) of the scorer's span for a batch;
         end_ok is static per scorer."""
         fs, end_ok, jlo = ends_free_device_params(
-            self.flat, self.aln_type, lengths, self.dg.n_nodes_padded)
+            self.flat, self.aln_type, lengths, self.dg.n_nodes_padded,
+            self.costs.is_two_piece)
         end_ok = self._prep_cache.setdefault(("ef_static",), end_ok)
         return fs, end_ok, jlo
 
@@ -481,6 +479,16 @@ class BandedScorer:
         costs = self.costs
         lengths_np = lengths.cpu().numpy()
         n_min, n_max = int(lengths_np.min()), int(lengths_np.max())
+        if (costs.is_two_piece and self.ends_free) \
+                or self._prep_cache.get(("fullfill", n_min, n_max)):
+            # no banded or drift kernel serves two-piece costs under an
+            # ends-free span (nor does poasta_tpu have one); otherwise
+            # banding already proved unprofitable for this length profile
+            self.stats["fills"] += 1
+            self.stats["cells_filled"] += (
+                self.flat.n_nodes * int(qshift.shape[1]) * int(qshift.shape[0]))
+            return self._full_scores(qshift, lengths, (n_min, n_max))
+
         # drift serves global spans and bounded ends-free spans; a free
         # graph begin stays on shared windows
         drift_ok = not (self.ends_free
@@ -496,13 +504,6 @@ class BandedScorer:
                 # not, and free ends absorb a length mismatch at no cost
                 guess += costs.gap_extend * (n_max - n_min)
             ub = self._ub_hint.get((n_min, n_max)) or guess
-
-        if self._prep_cache.get(("fullfill", n_min, n_max)):
-            # banding already proved unprofitable for this length profile
-            self.stats["fills"] += 1
-            self.stats["cells_filled"] += (
-                self.flat.n_nodes * int(qshift.shape[1]) * int(qshift.shape[0]))
-            return self._full_scores(qshift, lengths, (n_min, n_max))
 
         B = int(qshift.shape[0])
         out = np.empty(B, dtype=np.int32)

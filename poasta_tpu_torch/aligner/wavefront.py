@@ -1,8 +1,9 @@
 """Dense wavefront fill: the static device graph, read packing, the
-full-fill scores (global spans under one- and two-piece costs, ends-free
-spans under one-piece costs, the latter also with each read's end state),
-and the dense tables + host backtrace of small one-piece batches.  Port of
-the single-device part of ``poasta_tpu/aligner/wavefront.py``.
+full-fill scores (global spans, with or without free graph ends, and
+ends-free spans, the latter also with each read's end state; one- and
+two-piece costs), and the dense tables + host backtraces of small
+one-piece batches.  Port of the single-device part of
+``poasta_tpu/aligner/wavefront.py``.
 
 Ranks are the sequential axis, query offsets the lanes and reads the
 batch; rows live in a ring of ``W`` liveness-coloured slots, so the
@@ -20,9 +21,12 @@ import torch
 from ..graphs.flat import FlatGraph
 from ..ops.cuda_fill import (
     bounded_scores,
+    bounded_scores_2p,
     bounded_with_ends,
+    bounded_with_ends_2p,
     fill_scores,
     fill_scores_2p,
+    free_fill_scores,
 )
 from ..ops.dp_rows import INF, row_update
 from ..ops.dp_rows_2p import row_update_2p
@@ -33,7 +37,6 @@ from .costs import EndsFree
 # rank rows are padded to a multiple of this, as in the reference's
 # default layout; the kernels loop over the true rank count only
 NODE_BUCKET = 64
-TWO_PIECE_ENDS_FREE = "two-piece ends-free is not ported yet"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -228,10 +231,13 @@ def pack_queries(queries, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.as_tensor(lengths, device=device))
 
 
-def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int):
+def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int,
+               free_start: bool = False):
     """Yield (rank, M, I, D) rows of the clamped dense recurrence for ranks
     0 .. n_ranks-1: a plain rank scan over :func:`row_update`, written
-    independently of the fill kernels and their plain versions."""
+    independently of the fill kernels and their plain versions.
+    ``free_start`` seeds offset 0 at every real rank (0 < rank < end), as
+    the global origin seeds rank 0."""
     o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
     B, L = qshift.shape
     M_ring = torch.full((B, dg.window, L), INF, dtype=torch.int32,
@@ -248,7 +254,8 @@ def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int):
         valid = dg.pred_valid[r]
         match_cost = torch.where(qshift == symbols[r], 0, x).to(torch.int32)
         M, I, D = row_update(pred_M, pred_D, valid, match_cost, o, e,
-                             is_start_row=r == 0, free_start=False)
+                             is_start_row=r == 0,
+                             free_start=free_start and 0 < r < end)
         if r == end:
             # virtual end node: a zero-cost hop at the same offset
             M = torch.where(valid.view(1, -1, 1), pred_M, INF).min(1).values
@@ -259,10 +266,11 @@ def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int):
         yield r, M, I, D
 
 
-def _scan_end_row_2p(dg: DeviceGraph, qshift: torch.Tensor, costs):
-    """The end rank's M row of the two-piece recurrence, by a plain rank
-    scan over :func:`..ops.dp_rows_2p.row_update_2p` with its coupled
-    insertion scan."""
+def _scan_rows_2p(dg: DeviceGraph, qshift: torch.Tensor, costs,
+                  free_start: bool = False):
+    """Yield (rank, M) rows of the two-piece recurrence up to the end rank,
+    by a plain rank scan over :func:`..ops.dp_rows_2p.row_update_2p` with
+    its coupled insertion scan; ``free_start`` as in :func:`_scan_rows`."""
     o1, e1, e2 = costs.gap_open, costs.gap_extend, costs.gap_extend2
     x = costs.mismatch
     B, L = qshift.shape
@@ -277,44 +285,62 @@ def _scan_end_row_2p(dg: DeviceGraph, qshift: torch.Tensor, costs):
         valid = dg.pred_valid[r]
         if r == dg.end_rank_i:
             # virtual end node: a zero-cost hop at the same offset
-            return torch.where(valid.view(1, -1, 1), pred_M,
-                               INF).min(1).values
+            yield r, torch.where(valid.view(1, -1, 1), pred_M,
+                                 INF).min(1).values
+            return
         match_cost = torch.where(qshift == symbols[r], 0, x).to(torch.int32)
         M, _, _, D1, D2 = row_update_2p(pred_M, pred_D1, pred_D2, valid,
                                         match_cost, o1, e1, e2,
-                                        is_start_row=r == 0, free_start=False)
+                                        is_start_row=r == 0,
+                                        free_start=free_start and r > 0)
         for rg, row in zip(rings, (M, D1, D2)):
             rg[:, wslots[r]] = row
+        yield r, M
     raise ValueError("the graph has no end rank")
 
 
 def scan_scores(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
-                costs) -> torch.Tensor:
+                costs, free_start: bool = False,
+                free_end: bool = False) -> torch.Tensor:
     """(B,) global scores by a plain rank scan over :func:`row_update`, or
-    for two-piece costs over ``row_update_2p``.
+    for two-piece costs over ``row_update_2p``.  ``free_start``: every real
+    rank may begin the alignment at offset 0; ``free_end``: every real
+    rank's M at the read's length may end it, beside the end rank's.
 
     Twin of ``poasta_tpu``'s XLA ``_scores_exec`` and ``_scores_exec_2p``,
     independent of the fill kernels and their plain versions, so it can
     serve as their oracle.
     """
     if costs.is_two_piece:
-        end_M = _scan_end_row_2p(dg, qshift, costs)
+        rows = _scan_rows_2p(dg, qshift, costs, free_start)
     else:
-        end_M = None
-        for r, M, _, _ in _scan_rows(dg, qshift, costs, dg.n_nodes):
-            if r == dg.end_rank_i:
-                end_M = M
-    return end_M.gather(1, lengths.long().view(-1, 1))[:, 0]
+        rows = ((r, M) for r, M, _, _ in _scan_rows(
+            dg, qshift, costs, dg.n_nodes, free_start))
+    idx = lengths.long().view(-1, 1)
+    score = None
+    best = torch.full((qshift.shape[0],), INF, dtype=torch.int32,
+                      device=qshift.device)
+    for r, M in rows:
+        at = M.gather(1, idx)[:, 0]
+        if r == dg.end_rank_i:
+            score = at
+        elif free_end and r > 0:
+            best = torch.minimum(best, at)
+    return torch.minimum(score, best) if free_end else score
 
 
 def dp_fill_full(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
-                 costs):
+                 costs, free_start: bool = False):
     """Full fill for the host backtrace: (scores (B,), M, I, D each
-    (Np, B, L) int32).  Twin of ``poasta_tpu``'s XLA ``dp_fill_full``
-    (global spans): the same scan over every padded rank, keeping each
-    rank's rows.  Plain PyTorch on any device; its tables feed
-    :func:`backtrace_dense` only on shapes under the mapper's dense-table
-    budget."""
+    (Np, B, L) int32).  Twin of ``poasta_tpu``'s XLA ``dp_fill_full``: the
+    same scan over every padded rank, keeping each rank's rows;
+    ``free_start`` seeds offset 0 at every real rank (the tables of
+    :func:`backtrace_dense_ends_free` under a free graph begin).  The scores
+    are the end rank's.  Plain PyTorch on any device; the tables feed
+    :func:`backtrace_dense` on the mapper's small global batches (under its
+    dense-table budget) and :func:`backtrace_dense_ends_free` for library
+    callers only (the mapper aligns ends-free spans through the native
+    engine)."""
     if costs.is_two_piece:
         # as in the reference: the dense tables hold one insertion and one
         # deletion layer, so two-piece alignment takes the banded route
@@ -326,7 +352,8 @@ def dp_fill_full(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
     M = torch.empty(shape, dtype=torch.int32, device=qshift.device)
     I = torch.empty_like(M)
     D = torch.empty_like(M)
-    for r, m, i, d in _scan_rows(dg, qshift, costs, dg.n_nodes_padded):
+    for r, m, i, d in _scan_rows(dg, qshift, costs, dg.n_nodes_padded,
+                                 free_start):
         M[r], I[r], D[r] = m, i, d
     scores = M[dg.end_rank_i].gather(1, lengths.long().view(-1, 1))[:, 0]
     return scores, M, I, D
@@ -422,29 +449,150 @@ def backtrace_dense(flat: FlatGraph, M: np.ndarray, I: np.ndarray,
     return alignment
 
 
+def backtrace_dense_ends_free(flat: FlatGraph, M: np.ndarray, I: np.ndarray,
+                              D: np.ndarray, query: bytes, costs,
+                              end_ok: np.ndarray, jlo: int,
+                              free_start: bool) -> Tuple[int, Alignment]:
+    """Ends-free backtrace over converged dense tables (rank-major, from
+    :func:`dp_fill_full` with the span's ``free_start``).  Numpy twin of
+    ``poasta_tpu.aligner.wavefront.backtrace_dense_ends_free``.
+
+    Picks the best permitted end state (``end_ok`` per rank, query offsets
+    [jlo, n]; ties go to the largest offset, then the lowest rank), walks
+    with :func:`backtrace_dense`'s priority rules, and stops at any origin:
+    the global origin, or under a free graph begin any zero-score offset-0
+    seed.  The free query prefix and suffix are not emitted as pairs.
+
+    Returns (score, alignment).
+    """
+    n = len(query)
+    end_rank = flat.n_nodes - 1
+    # tables may carry bucket-padded rows; the mask's padding entries are 0
+    eo = np.asarray(end_ok)[: M.shape[0]].astype(bool)
+    lo = max(int(jlo), 0)
+    if lo > n or not eo.any():
+        raise RuntimeError("ends-free backtrace: unsatisfiable bounds")
+    score = int(M[eo][:, lo:n + 1].min())
+    if score >= INF:
+        raise RuntimeError("ends-free backtrace: no finite end state")
+    ranks_eo = np.flatnonzero(eo)
+    best = None
+    for j in range(n, lo - 1, -1):
+        hit = np.flatnonzero(M[eo, j] == score)
+        if hit.size:
+            best = (int(ranks_eo[hit[0]]), j)
+            break
+    r, j = best
+
+    def preds(r_):
+        # CSR stores newest-edge-first; the backtrace scans oldest-first.
+        lst = flat.pred_idx[flat.pred_ptr[r_]: flat.pred_ptr[r_ + 1]]
+        return list(lst[::-1])
+
+    alignment: Alignment = []
+    if r == end_rank:
+        # virtual end: hop to the real predecessor carrying the score
+        r = next((int(p) for p in preds(end_rank) if int(M[p, j]) == score),
+                 None)
+        if r is None:
+            raise RuntimeError("ends-free backtrace: no pred for end state")
+    state = "M"
+    o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
+
+    while True:
+        cur = int(M[r, j]) if state == "M" else (
+            int(D[r, j]) if state == "D" else int(I[r, j]))
+        # an origin: a zero-score M cell at offset 0 (the global origin, or
+        # under a free graph begin any real rank's seed) consumes nothing
+        if state == "M" and j == 0 and cur == 0 and (free_start or r == 0):
+            break
+        step = None
+        if state == "M":
+            if j > 0:
+                sym_match = int(flat.symbols[r]) == query[j - 1]
+                want = cur if sym_match else cur - x
+                for p in preds(r):
+                    if int(M[p, j - 1]) == want:
+                        step = (int(p), j - 1, "M")
+                        break
+            if step is None and int(D[r, j]) == cur:
+                step = (r, j, "D")
+            if step is None and int(I[r, j]) == cur:
+                step = (r, j, "I")
+        elif state == "D":
+            for p in preds(r):
+                if int(M[p, j]) == cur - o - e:
+                    step = (int(p), j, "M")
+                    break
+            if step is None:
+                for p in preds(r):
+                    if int(D[p, j]) == cur - e:
+                        step = (int(p), j, "D")
+                        break
+        else:  # insertion
+            if j > 0:
+                if int(M[r, j - 1]) == cur - o - e:
+                    step = (r, j - 1, "M")
+                elif int(I[r, j - 1]) == cur - e:
+                    step = (r, j - 1, "I")
+
+        if step is None:
+            break
+
+        bt_r, bt_j, bt_state = step
+        if state == "M" and bt_state in ("D", "I"):
+            r, j, state = bt_r, bt_j, bt_state
+            continue
+
+        node = int(flat.node_of_rank[r])
+        if state == "M":
+            alignment.append(AlignedPair(node, j - 1))
+        elif state == "I":
+            alignment.append(AlignedPair(None, j - 1))
+        else:
+            alignment.append(AlignedPair(node, None))
+
+        if bt_r == 0:  # virtual start node
+            break
+        r, j, state = bt_r, bt_j, bt_state
+
+    alignment.reverse()
+    return score, alignment
+
+
 def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
-                   lengths: torch.Tensor, costs) -> torch.Tensor:
-    """(B,) optimal global alignment scores by the full-width fill, under
-    one- or two-piece costs.
+                   lengths: torch.Tensor, costs, free_start: bool = False,
+                   free_end: bool = False) -> torch.Tensor:
+    """(B,) optimal alignment scores by the full-width fill, under one- or
+    two-piece costs: global, or with a free graph begin (every real rank
+    may start at offset 0) and/or a free graph end (every real rank may
+    end at the read's length).
 
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
-    plain PyTorch version does.
+    plain PyTorch version does.  Free graph ends run the bounded fill under
+    an end mask with jlo = n (:func:`..ops.cuda_fill.free_end_mask`), as
+    ``poasta_tpu`` does past its kernels' size budget.
     """
+    if free_start or free_end:
+        return free_fill_scores(dg, qshift, lengths, costs, free_start,
+                                free_end)
     if costs.is_two_piece:
         return fill_scores_2p(dg, qshift, lengths, costs)
     return fill_scores(dg, qshift, lengths, costs)
 
 
-def query_end_lo(aln_type: EndsFree, lengths_np: np.ndarray) -> np.ndarray:
+def query_end_lo(aln_type: EndsFree, lengths_np: np.ndarray,
+                 two_piece: bool = False) -> np.ndarray:
     """(B,) lowest query offset at which a read may end under
     ``aln_type.qry_free_end``: the permitted end offsets are [jlo, n]
     (empty when the bound cannot be met).  The unbounded case keeps the
-    exact engine's offset > 0 rule (an empty read ends at 0).  The one
-    place this bound is lowered; host and device users share it."""
+    exact engines' rules: offset > 0 under one-piece costs (an empty read
+    ends at 0), the read's last base under two-piece costs.  The one place
+    this bound is lowered; host and device users share it."""
     li = np.asarray(lengths_np).astype(np.int64)
     kind, val = aln_type.qry_free_end
     if kind == "unbounded":
-        jlo = np.minimum(li, 1)
+        jlo = li if two_piece else np.minimum(li, 1)
     elif kind == "included":
         jlo = np.maximum(li - val, 0)
     else:
@@ -453,7 +601,8 @@ def query_end_lo(aln_type: EndsFree, lengths_np: np.ndarray) -> np.ndarray:
 
 
 def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
-                            lengths: torch.Tensor, n_nodes_padded: int):
+                            lengths: torch.Tensor, n_nodes_padded: int,
+                            two_piece: bool = False):
     """Lower an ``EndsFree`` span to what the bounded fills take:
     ``(free_start, end_ok, jlo)`` on ``lengths``' device.
 
@@ -463,7 +612,8 @@ def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
       graph_free_end bound on its min distance to the end node.  No rank is
       excluded by kind: the virtual end rank (distance 0) passes every
       bound but excluded(0).
-    * ``jlo``: (B,) int32, :func:`query_end_lo`.
+    * ``jlo``: (B,) int32, :func:`query_end_lo` (``two_piece``: the
+      two-piece engines' rule).
     ``qry_free_begin`` is parsed and ignored, as in the exact engine.
     """
     if not isinstance(aln_type, EndsFree):
@@ -479,7 +629,7 @@ def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
         ok = (de < val).astype(np.int32)
     end_ok = np.zeros(n_nodes_padded, dtype=np.int32)
     end_ok[:n] = ok
-    jlo = query_end_lo(aln_type, lengths.cpu().numpy())
+    jlo = query_end_lo(aln_type, lengths.cpu().numpy(), two_piece)
     dev = lengths.device
     return (aln_type.graph_free_begin[0] == "unbounded",
             torch.as_tensor(end_ok, device=dev),
@@ -491,19 +641,19 @@ def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
                              costs, aln_type: EndsFree,
                              max_run: int = 0) -> torch.Tensor:
     """(B,) optimal ends-free scores by the full-width bounded fill, with
-    included/excluded/unbounded bounds on the graph and query free ends.
-    ``max_run`` caps the insertion scan (scores are then upper bounds; see
-    ``aligner.banded.run_capped_ladder``).
+    included/excluded/unbounded bounds on the graph and query free ends,
+    under one- or two-piece costs.  ``max_run`` caps the insertion scan
+    (scores are then upper bounds; see ``aligner.banded.run_capped_ladder``).
 
     On a CUDA tensor the bounded fill kernel runs (or raises); on a CPU
     tensor its plain PyTorch version does.
     """
-    if costs.is_two_piece:
-        raise NotImplementedError(TWO_PIECE_ENDS_FREE)
+    two_piece = costs.is_two_piece
     free_start, end_ok, jlo = ends_free_device_params(
-        flat, aln_type, lengths, dg.n_nodes_padded)
-    return bounded_scores(dg, qshift, lengths, costs, free_start, end_ok, jlo,
-                          max_run=max_run)
+        flat, aln_type, lengths, dg.n_nodes_padded, two_piece)
+    fill = bounded_scores_2p if two_piece else bounded_scores
+    return fill(dg, qshift, lengths, costs, free_start, end_ok, jlo,
+                max_run=max_run)
 
 
 def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
@@ -516,17 +666,17 @@ def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
     anchor of the device traceback and of
     ``NativeAligner.align_anchored``; ties go to the largest offset, then
     the lowest rank.  ``max_run`` caps the insertion scan as in
-    :func:`dp_fill_scores_ends_free`.
+    :func:`dp_fill_scores_ends_free`; one- or two-piece costs.
 
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
     plain PyTorch version does.
     """
-    if costs.is_two_piece:
-        raise NotImplementedError(TWO_PIECE_ENDS_FREE)
+    two_piece = costs.is_two_piece
     free_start, end_ok, jlo = ends_free_device_params(
-        flat, aln_type, lengths, dg.n_nodes_padded)
-    return bounded_with_ends(dg, qshift, lengths, costs, free_start, end_ok,
-                             jlo, max_run=max_run)
+        flat, aln_type, lengths, dg.n_nodes_padded, two_piece)
+    fill = bounded_with_ends_2p if two_piece else bounded_with_ends
+    return fill(dg, qshift, lengths, costs, free_start, end_ok, jlo,
+                max_run=max_run)
 
 
 def alignment_cost(graph, query: bytes, alignment: Alignment, costs) -> int:

@@ -357,5 +357,10 @@ def main(argv=None):
     return 0
 
 
+def main_entry() -> None:
+    """console_scripts entry point (sys.exit for shell status)."""
+    sys.exit(main())
+
+
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,7 +4,8 @@
 // capped insertion scan, and a running min of the Match row over the ranks
 // that may end the alignment; B7: beside that row, the first rank that
 // reached each of its values, which anchors the traceback), and for
-// two-piece costs under the global span (B12).
+// two-piece costs under both (B12 global; B13 and B14 the two-piece B4 and
+// B7).
 //
 // Replaces, in poasta_tpu/ops/pallas_fill.py:
 //   BOUNDED == false         _fill_kernel with free_start = free_end = False
@@ -17,7 +18,14 @@
 //                            are read from global memory at any graph size
 //   TWO_PIECE == true        _fill_kernel_2p with free_start = free_end = False
 //                            (_pallas_exec_2p / pallas_fill_scores_2p)
-// Same inputs, same end row, best row or rank row, bit for bit.
+//   BOUNDED and TWO_PIECE    _fill_kernel_bounded_2p
+//                            (pallas_fill_scores_bounded_2p)
+//   ... and ENDS             _fill_kernel_bounded_2p_ends and its streamed
+//                            twin _fill_kernel_bounded_big_2p_ends
+//                            (pallas_bounded_with_ends_2p[_big])
+// Same inputs, same end row, best row or rank row, bit for bit.  The free
+// graph ends of _fill_kernel and _fill_kernel_2p (free_start, free_end) are
+// the bounded fills under an end mask (ops/cuda_fill.py:free_end_mask).
 //
 // Recurrence, per read and per topological rank r, over the offsets
 // j = 0 .. L-1 (untilted):
@@ -40,8 +48,8 @@
 //
 // Two-piece costs (TWO_PIECE): the launcher passes o = o1 + e1 - e2, e = e2
 // and ed = e1 (ops/cuda_fill.py:fill_constants); D (D1) extends at ed, a
-// third ring and a sixth scratch row hold D2 = min(min_pd, min_pd2) + e, and
-// A = min(diag, D, D2).  The insertion term above is then the TPU kernel's
+// third ring and one more scratch row hold D2 = min(min_pd, min_pd2) + e
+// (INF at the end rank, as D is), and A = min(diag, D, D2).  The insertion term above is then the TPU kernel's
 // coupled (I1, I2) scan folded into one prefix-min of A - e2*j, exact
 // because only M = min(A, I1, I2) is stored and e1 >= e2 (see
 // banded_kernel.cu).
@@ -61,18 +69,38 @@
 // and B4 are the ladders' last resort; B7 scores the first batch of a
 // semi-global read stream, before the seeded corridor fill takes over; B12
 // is the two-piece ladder's last resort (three rings, 3*W*L int32, always
-// global at 5 kb reads).
+// global at 5 kb reads).  B13 and B14 carry every two-piece ends-free
+// batch, which has no banded or seeded kernel: eight rows for B14 (164 KB
+// at L = 5120) and three rings, always global at 5 kb reads.  The rank
+// tables are read from global memory at any graph size, so B14 also
+// serves the graphs the TPU streamed (B15).
 #include "common.cuh"
 #include "prefix_min.cuh"
 
-// variant: 0 global (B2), 1 bounded (B4), 2 bounded with end ranks (B7),
-// 3 global with two-piece costs (B12)
-static inline long long fill_row_ints(int variant, int L) {
-    return (long long)(POASTA_ROWS + (variant == 3 ? 1 : variant)) * L;
+struct FillFlags {
+    bool bounded, ends, two_piece;
+};
+
+// variant codes: 0 global (B2), 1 bounded (B4), 2 bounded with end ranks
+// (B7), 3 global with two-piece costs (B12), 4 bounded with two-piece costs
+// (B13), 5 bounded with end ranks and two-piece costs (B14)
+static inline bool fill_flags(int variant, FillFlags* flags) {
+    static const FillFlags table[] = {
+        {false, false, false}, {true, false, false}, {true, true, false},
+        {false, false, true},  {true, false, true},  {true, true, true}};
+    if (variant < 0 || variant > 5) return false;
+    *flags = table[variant];
+    return true;
 }
 
-static inline long long fill_ring_ints(int variant, int W, int L) {
-    return (variant == 3 ? 3LL : 2LL) * W * L;
+// the kernel's scratch rows: POASTA_ROWS, then D2 (two-piece), best
+// (bounded) and the rank row (ends)
+static inline long long fill_row_ints(FillFlags f, int L) {
+    return (long long)(POASTA_ROWS + f.two_piece + f.bounded + f.ends) * L;
+}
+
+static inline long long fill_ring_ints(FillFlags f, int W, int L) {
+    return (f.two_piece ? 3LL : 2LL) * W * L;
 }
 
 template <bool BOUNDED, bool ENDS, bool TWO_PIECE>
@@ -105,9 +133,9 @@ __global__ void full_fill_kernel(
     int* a_row = rows + 2 * L;
     int* s0 = rows + 3 * L;
     int* s1 = rows + 4 * L;
-    int* best = rows + 5 * L;
-    int* bestr = rows + 6 * L;
-    int* d2_row = rows + 5 * L;  // two-piece only (never bounded)
+    int* d2_row = rows + 5 * L;  // two-piece only
+    int* best = rows + (TWO_PIECE ? 6 : 5) * L;   // bounded only
+    int* bestr = rows + (TWO_PIECE ? 7 : 6) * L;  // ends only
     const int* q = qshift + (long long)blockIdx.x * L;
     int* out = out_rows + (long long)blockIdx.x * L;
 
@@ -198,10 +226,11 @@ __global__ void full_fill_kernel(
 extern "C" int poasta_fill_plan(int variant, int W, int L, int* threads,
                                 int* mode, int* smem_bytes,
                                 long long* global_ints) {
-    if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+    FillFlags flags;
+    if (!fill_flags(variant, &flags)) return (int)cudaErrorInvalidValue;
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(L, fill_row_ints(variant, L),
-                                  fill_ring_ints(variant, W, L), &plan);
+    cudaError_t err = poasta_plan(L, fill_row_ints(flags, L),
+                                  fill_ring_ints(flags, W, L), &plan);
     if (err != cudaSuccess) return (int)err;
     *threads = plan.threads;
     *mode = plan.mode;
@@ -212,7 +241,7 @@ extern "C" int poasta_fill_plan(int variant, int W, int L, int* threads,
 
 // `variant` = 0: the global fill (end_ok may be null; cap and free_start
 // are not read); 1: the ends-free fill; 2: the ends-free fill that also
-// writes `out_ranks`; 3: the global fill with two-piece costs (`ed` is read
+// writes `out_ranks`; 3, 4, 5: 0, 1, 2 with two-piece costs (`ed` is read
 // only there).
 extern "C" int poasta_full_fill(
     int variant, const int* symbols, const int* pred_slots,
@@ -220,10 +249,11 @@ extern "C" int poasta_full_fill(
     const int* qshift, int B, int L, int n_nodes, int end_rank, int W, int P,
     int o, int e, int ed, int x, int cap, int free_start, int* out_rows,
     int* out_ranks, int* gws, long long gws_ints, void* stream) {
-    if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+    FillFlags flags;
+    if (!fill_flags(variant, &flags)) return (int)cudaErrorInvalidValue;
     PoastaPlan plan;
-    cudaError_t err = poasta_plan(L, fill_row_ints(variant, L),
-                                  fill_ring_ints(variant, W, L), &plan);
+    cudaError_t err = poasta_plan(L, fill_row_ints(flags, L),
+                                  fill_ring_ints(flags, W, L), &plan);
     if (err != cudaSuccess) return (int)err;
     if (gws_ints < plan.global_ints * (long long)B)
         return (int)cudaErrorInvalidValue;
@@ -234,9 +264,13 @@ extern "C" int poasta_full_fill(
                        qshift, L, n_nodes, end_rank, W, P, o, e, ed, x, cap,   \
                        free_start, out_rows, out_ranks, gws, plan.global_ints, \
                        plan.mode)
-    if (variant == 3) return POASTA_FULL_FILL(false, false, true);
-    if (variant == 2) return POASTA_FULL_FILL(true, true, false);
-    if (variant == 1) return POASTA_FULL_FILL(true, false, false);
-    return POASTA_FULL_FILL(false, false, false);
+    switch (variant) {
+        case 5: return POASTA_FULL_FILL(true, true, true);
+        case 4: return POASTA_FULL_FILL(true, false, true);
+        case 3: return POASTA_FULL_FILL(false, false, true);
+        case 2: return POASTA_FULL_FILL(true, true, false);
+        case 1: return POASTA_FULL_FILL(true, false, false);
+        default: return POASTA_FULL_FILL(false, false, false);
+    }
 #undef POASTA_FULL_FILL
 }

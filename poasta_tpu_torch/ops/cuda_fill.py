@@ -14,6 +14,13 @@ Port of ``poasta_tpu/ops/pallas_fill.py``.  TPU kernel -> wrapper here
 * B7 ``_fill_kernel_bounded_ends`` (and its streamed twin B10) ->
   ``bounded_end_rows`` (fill_kernel.cu)
 * B12 ``_fill_kernel_2p``, global -> ``fill_end_rows_2p`` (fill_kernel.cu)
+* B13 ``_fill_kernel_bounded_2p`` -> ``bounded_best_rows_2p``
+  (fill_kernel.cu)
+* B14 ``_fill_kernel_bounded_2p_ends`` (and its streamed twin B15) ->
+  ``bounded_end_rows_2p`` (fill_kernel.cu)
+* B2f and B12f, ``_fill_kernel`` and ``_fill_kernel_2p`` with
+  ``free_start``/``free_end`` -> ``free_fill_rows`` and
+  ``free_fill_rows_2p``: B4 and B13 under :func:`free_end_mask`
 * B16 ``_banded_kernel_2p`` -> ``banded_end_rows_2p`` (banded_kernel.cu)
 * B17 ``_banded_kernel_drift_2p`` -> ``drift_end_rows_2p``
   (banded_kernel.cu)
@@ -21,7 +28,7 @@ Port of ``poasta_tpu/ops/pallas_fill.py``.  TPU kernel -> wrapper here
 ``banded_kernel.cu`` and ``fill_kernel.cu`` each hold one kernel template;
 the variants are its compile-time instantiations.
 
-Two-piece costs (B12, B16, B17) run the same recurrence with a third ring
+Two-piece costs (B12-B17) run the same recurrence with a third ring
 (D2) and one more scratch row.  Only M = min(A, I1, I2) enters a ring, and
 ``GapAffine2Piece`` has e1 >= e2, so a run of k >= 1 inserted lanes costs
 o1 + e1 + (k - 1) * e2 at best (switch to piece 2 at once, never reopen):
@@ -62,6 +69,7 @@ VARIANT_GLOBAL, VARIANT_DRIFT, VARIANT_EF, VARIANT_DRIFT_EF = 1, 3, 5, 6
 VARIANT_GLOBAL_2P, VARIANT_DRIFT_2P = 16, 17
 # variant codes of csrc/fill_kernel.cu
 FILL_GLOBAL, FILL_BOUNDED, FILL_BOUNDED_ENDS, FILL_GLOBAL_2P = 0, 1, 2, 3
+FILL_BOUNDED_2P, FILL_BOUNDED_ENDS_2P = 4, 5
 
 
 def fill_constants(costs):
@@ -137,11 +145,21 @@ def fill_plan(W: int, L: int, two_piece: bool = False) -> dict:
                  FILL_GLOBAL_2P if two_piece else FILL_GLOBAL, W, L)
 
 
-def bounded_plan(W: int, L: int, ends: bool = False) -> dict:
-    """Launch shape and placement of the bounded full-fill kernel (B4), or
-    with ``ends`` of the one that also keeps the end ranks (B7)."""
-    return _plan("poasta_fill_plan",
-                 FILL_BOUNDED_ENDS if ends else FILL_BOUNDED, W, L)
+def _fill_variant(bounded: bool, ends: bool, two_piece: bool) -> int:
+    if ends:
+        return FILL_BOUNDED_ENDS_2P if two_piece else FILL_BOUNDED_ENDS
+    if bounded:
+        return FILL_BOUNDED_2P if two_piece else FILL_BOUNDED
+    return FILL_GLOBAL_2P if two_piece else FILL_GLOBAL
+
+
+def bounded_plan(W: int, L: int, ends: bool = False,
+                 two_piece: bool = False) -> dict:
+    """Launch shape and placement of the bounded full-fill kernel (B4, or
+    B13 with ``two_piece``), or with ``ends`` of the one that also keeps
+    the end ranks (B7, B14)."""
+    return _plan("poasta_fill_plan", _fill_variant(True, ends, two_piece),
+                 W, L)
 
 
 def variant_plan(variant: int, W: int, width: int, margin: int,
@@ -771,7 +789,7 @@ def drift_scores_2p_plain(dg, qpad, lengths, costs, prep: dict, n_min: int,
 
 
 # --------------------------------------------------------------------------
-# Full-width fills: one plain rank loop for B2, B4, B7 and B12
+# Full-width fills: one plain rank loop for B2, B4, B7 and B12-B14
 # --------------------------------------------------------------------------
 
 def _fill_plain(dg, qshift: torch.Tensor, costs, free_start: bool = False,
@@ -860,11 +878,7 @@ def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
     bounded = end_ok is not None
     if ends and not bounded:
         raise ValueError("end ranks need an ends-free span (end_ok)")
-    if costs.is_two_piece and bounded:
-        raise ValueError("the two-piece full fill takes the global span")
-    variant = FILL_BOUNDED_ENDS if ends else (
-        FILL_BOUNDED if bounded else (
-            FILL_GLOBAL_2P if costs.is_two_piece else FILL_GLOBAL))
+    variant = _fill_variant(bounded, ends, costs.is_two_piece)
     lib = build.load()
     dev = qshift.device
     B, L = qshift.shape
@@ -1067,3 +1081,181 @@ def bounded_with_ends_plain(dg, qshift, lengths, costs, free_start: bool,
     best, ranks = bounded_end_rows_plain(dg, qshift, costs, free_start,
                                          end_ok, max_run)
     return _with_ends_from(best, ranks, lengths, jlo)
+
+
+# ---- B13: ends-free span, two-piece costs --------------------------------
+
+def bounded_best_rows_2p_plain(dg, qshift: torch.Tensor, costs,
+                               free_start: bool, end_ok: torch.Tensor,
+                               max_run: int = 0) -> torch.Tensor:
+    """Plain version of the two-piece bounded full-fill kernel: the (B, L)
+    untilted best row."""
+    return _fill_plain(dg, qshift, costs, free_start, end_ok, max_run)
+
+
+def _launch_bounded_2p(dg, qshift, costs, free_start, end_ok, max_run):
+    return _launch_full_fill(bounded_best_rows_2p, dg, qshift, costs,
+                             free_start, end_ok, max_run)
+
+
+def bounded_best_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
+                         end_ok: torch.Tensor,
+                         max_run: int = 0) -> torch.Tensor:
+    """(B, L) best rows of the two-piece full-width fill under an ends-free
+    span: the kernel on a CUDA tensor, the plain version on a CPU tensor.
+    Arguments as for :func:`bounded_best_rows`; ``costs`` is a
+    ``GapAffine2Piece``."""
+    fn = _dispatch(_launch_bounded_2p, bounded_best_rows_2p_plain, qshift,
+                   "two-piece bounded fill", costs, two_piece=True)
+    return fn(dg, qshift, costs, free_start, end_ok, max_run)
+
+
+bounded_best_rows_2p.launches = 0
+
+
+def bounded_scores_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
+                      free_start: bool, end_ok: torch.Tensor,
+                      jlo: torch.Tensor, max_run: int = 0) -> torch.Tensor:
+    """(B,) two-piece ends-free scores by the full-width fill: exact with
+    ``max_run = 0``, upper bounds under a cap."""
+    return _windowed_min(
+        bounded_best_rows_2p(dg, qshift, costs, free_start, end_ok, max_run),
+        lengths, jlo)
+
+
+def bounded_scores_2p_plain(dg, qshift, lengths, costs, free_start: bool,
+                            end_ok, jlo, max_run: int = 0) -> torch.Tensor:
+    return _windowed_min(
+        bounded_best_rows_2p_plain(dg, qshift, costs, free_start, end_ok,
+                                   max_run), lengths, jlo)
+
+
+# ---- B14: ends-free span, two-piece costs, with each read's end state -----
+
+def bounded_end_rows_2p_plain(dg, qshift: torch.Tensor, costs,
+                              free_start: bool, end_ok: torch.Tensor,
+                              max_run: int = 0):
+    """Plain version of the two-piece bounded full-fill kernel with end
+    ranks: the (B, L) untilted best row and the first rank that reached
+    it."""
+    return _fill_plain(dg, qshift, costs, free_start, end_ok, max_run,
+                       ends=True)
+
+
+def _launch_bounded_ends_2p(dg, qshift, costs, free_start, end_ok, max_run):
+    return _launch_full_fill(bounded_end_rows_2p, dg, qshift, costs,
+                             free_start, end_ok, max_run, ends=True)
+
+
+def bounded_end_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
+                        end_ok: torch.Tensor, max_run: int = 0):
+    """((B, L) best rows, (B, L) end ranks) of the two-piece full-width fill
+    under an ends-free span: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor.  The rank tables are read from global memory at any
+    graph size (the TPU streamed them past its scalar-prefetch budget,
+    B15)."""
+    fn = _dispatch(_launch_bounded_ends_2p, bounded_end_rows_2p_plain, qshift,
+                   "two-piece bounded fill with end ranks", costs,
+                   two_piece=True)
+    return fn(dg, qshift, costs, free_start, end_ok, max_run)
+
+
+bounded_end_rows_2p.launches = 0
+
+
+def bounded_with_ends_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor,
+                         costs, free_start: bool, end_ok: torch.Tensor,
+                         jlo: torch.Tensor, max_run: int = 0):
+    """:func:`bounded_with_ends` under two-piece costs."""
+    best, ranks = bounded_end_rows_2p(dg, qshift, costs, free_start, end_ok,
+                                      max_run)
+    return _with_ends_from(best, ranks, lengths, jlo)
+
+
+def bounded_with_ends_2p_plain(dg, qshift, lengths, costs, free_start: bool,
+                               end_ok, jlo, max_run: int = 0):
+    best, ranks = bounded_end_rows_2p_plain(dg, qshift, costs, free_start,
+                                            end_ok, max_run)
+    return _with_ends_from(best, ranks, lengths, jlo)
+
+
+# ---- B2f and B12f: free graph ends of the global fill ----------------------
+
+_END_MASKS: dict = {}  # (id(dg), free_end) -> (dg, mask); the dg pins the id
+
+
+def free_end_mask(dg, free_end: bool) -> torch.Tensor:
+    """(Np,) int32 ``end_ok`` that turns the bounded fills (B4, B13) into
+    the global fill's free graph end: ranks 1 .. n_nodes - 1 when
+    ``free_end`` (every real rank and the virtual end rank, whose M is the
+    min of its predecessors', so the best row is _fill_kernel's min of the
+    real ranks' running min and the end row), else the end rank alone.
+    Cached per graph."""
+    key = (id(dg), bool(free_end))
+    hit = _END_MASKS.get(key)
+    if hit is not None and hit[0] is dg:
+        return hit[1]
+    mask = np.zeros(dg.n_nodes_padded, dtype=np.int32)
+    if free_end:
+        mask[1:dg.n_nodes] = 1
+    else:
+        mask[dg.end_rank_i] = 1
+    out = torch.as_tensor(mask, device=dg.device)
+    _END_MASKS[key] = (dg, out)
+    while len(_END_MASKS) > 8:
+        _END_MASKS.pop(next(iter(_END_MASKS)))
+    return out
+
+
+def free_fill_rows_plain(dg, qshift: torch.Tensor, costs, free_start: bool,
+                         free_end: bool) -> torch.Tensor:
+    """Plain version of the free-end full fill, one- or two-piece: the
+    bounded fill's plain version under :func:`free_end_mask`, uncapped."""
+    return _fill_plain(dg, qshift, costs, free_start,
+                       free_end_mask(dg, free_end))
+
+
+def _launch_free_fill(dg, qshift, costs, free_start, free_end):
+    wrapper = free_fill_rows_2p if costs.is_two_piece else free_fill_rows
+    return _launch_full_fill(wrapper, dg, qshift, costs, free_start,
+                             free_end_mask(dg, free_end))
+
+
+def free_fill_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
+                   free_end: bool) -> torch.Tensor:
+    """(B, L) end rows of the one-piece global fill with a free graph begin
+    and/or end (B2f): B4's kernel under :func:`free_end_mask` on a CUDA
+    tensor, the plain version on a CPU tensor.  Lane n is a read of length
+    n's score."""
+    fn = _dispatch(_launch_free_fill, free_fill_rows_plain, qshift,
+                   "free-end full fill", costs)
+    return fn(dg, qshift, costs, free_start, free_end)
+
+
+free_fill_rows.launches = 0
+
+
+def free_fill_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
+                      free_end: bool) -> torch.Tensor:
+    """:func:`free_fill_rows` under two-piece costs (B12f), on B13's
+    kernel."""
+    fn = _dispatch(_launch_free_fill, free_fill_rows_plain, qshift,
+                   "two-piece free-end full fill", costs, two_piece=True)
+    return fn(dg, qshift, costs, free_start, free_end)
+
+
+free_fill_rows_2p.launches = 0
+
+
+def free_fill_scores(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
+                     free_start: bool, free_end: bool) -> torch.Tensor:
+    """(B,) exact scores of the global fill with free graph ends, one- or
+    two-piece."""
+    rows = free_fill_rows_2p if costs.is_two_piece else free_fill_rows
+    return _at_lengths(rows(dg, qshift, costs, free_start, free_end), lengths)
+
+
+def free_fill_scores_plain(dg, qshift, lengths, costs, free_start: bool,
+                           free_end: bool) -> torch.Tensor:
+    return _at_lengths(free_fill_rows_plain(dg, qshift, costs, free_start,
+                                            free_end), lengths)

@@ -1,0 +1,3 @@
+from .mapper import BatchMapper
+
+__all__ = ["BatchMapper"]

@@ -1,7 +1,6 @@
 """Batch read mapping against a static graph: port of the single-device
 part of ``poasta_tpu/parallel/mapper.py`` (scoring and alignment of global
-and ends-free spans under one-piece costs, and of the global span under
-two-piece costs)."""
+and ends-free spans under one- and two-piece costs)."""
 
 from __future__ import annotations
 
@@ -21,7 +20,6 @@ from ..aligner.seeds import (
     subset_hits,
 )
 from ..aligner.wavefront import (
-    TWO_PIECE_ENDS_FREE,
     DeviceGraph,
     backtrace_dense,
     dp_fill_ends_free_with_ends,
@@ -42,8 +40,7 @@ class BatchMapper:
     raises without one).  Scores come from the banded scorer (exact by
     verify-and-retry, the full-width fill as its last resort), under
     ``aln_type``: None or Global, or an ``EndsFree`` span.  ``costs``:
-    ``GapAffine``, or ``GapAffine2Piece`` under the global span (an
-    ``EndsFree`` span with two-piece costs raises: not ported yet).
+    ``GapAffine`` or ``GapAffine2Piece``.
     Alignments of a global span come from dense tables and a host
     backtrace for small one-piece batches, and otherwise from the device
     traceback, with the native engine's banded backtrace for the reads the
@@ -54,7 +51,9 @@ class BatchMapper:
     that also returns each read's end state (seeded corridors on large
     graphs once a batch has taught the score rates, the full-width fill
     otherwise), then the device traceback anchored at that end state, with
-    the native engine's anchored corridor for the rest.
+    the native engine's anchored corridor for the rest; two-piece costs
+    neither seed nor trace, as in ``poasta_tpu``, so every read takes the
+    anchored corridor.
     """
 
     # dense tables cost Np*B*L*12 bytes; past this budget align_batch takes
@@ -70,8 +69,6 @@ class BatchMapper:
         if aln_type is not None \
                 and not isinstance(aln_type, (Global, EndsFree)):
             raise TypeError(f"unknown alignment span {aln_type!r}")
-        if costs.is_two_piece and isinstance(aln_type, EndsFree):
-            raise NotImplementedError(TWO_PIECE_ENDS_FREE)
         self.graph = graph
         self.flat = graph.flatten()
         self.dg = DeviceGraph.build(self.flat, device=device)
@@ -296,8 +293,12 @@ class BatchMapper:
         fill where it is provably exact and pays, the full bounded fill
         otherwise and for the reads the corridors leave unresolved.  Either
         way the batch's scores teach the seed rates.  An error of the
-        seeded fill propagates; it returns None only to route."""
-        mode = os.environ.get("POASTA_SEED", "")
+        seeded fill propagates; it returns None only to route.  Two-piece
+        costs always take the full fill and learn nothing, whatever
+        ``POASTA_SEED`` says (the corridors and their certificate are
+        one-piece, as in ``poasta_tpu``)."""
+        mode = "0" if self.costs.is_two_piece \
+            else os.environ.get("POASTA_SEED", "")
         lengths_np = np.fromiter((len(q) for q in queries), dtype=np.int64,
                                  count=len(queries))
         out = None
@@ -460,7 +461,8 @@ class BatchMapper:
         ``NativeAligner.align_anchored``, which fills only a corridor around
         that read's own locus.  An error of the trace propagates, and so
         does a corridor the native engine cannot verify: a wrong end state
-        would show up there and nowhere else.
+        would show up there and nowhere else.  Two-piece costs skip the
+        trace (its kernel is one-piece): every read takes the corridor.
         """
         self._init_banded()
         native = self._native
@@ -471,7 +473,7 @@ class BatchMapper:
         stats = {"device_s": time.perf_counter() - t0, "anchored_ok": 0,
                  "exact_fallback": 0, "host_s": 0.0, "device_traced": 0}
         traced = [None] * len(queries)
-        if trace_enabled():
+        if not self.costs.is_two_piece and trace_enabled():
             t1 = time.perf_counter()
             traced = trace_align(self.dg, self.flat, qshift, lengths,
                                  self.costs, sc, anchor_r=er, anchor_j=ej,

@@ -732,3 +732,116 @@ def test_two_piece_batch_mapper_on_card(card):
         extra = 0 if lead == 0 else (COSTS_2P.gap_open + COSTS_2P.gap_extend
                                      + (lead - 1) * COSTS_2P.gap_extend2)
         assert alignment_cost(g, r, aln, COSTS_2P) + extra == s
+
+
+# ---- two-piece ends-free: B13, B14 (B15), and the free-end fills B2f, B12f -----
+
+@pytest.mark.parametrize("max_run", [0, 32])
+@pytest.mark.parametrize("span", [SEMI_GLOBAL, BOUNDED],
+                         ids=["semi-global", "bounded"])
+def test_bounded_2p_kernel_matches_plain(card, max_run, span):
+    """B13: best rows and scores equal the plain version's, with a free
+    graph begin and without, uncapped and capped."""
+    g, reads = _backbone_case(22, 1500, 64, 600)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    fs, end_ok, jlo = ends_free_device_params(flat, span, lengths,
+                                              dg.n_nodes_padded, True)
+    before = cf.bounded_best_rows_2p.launches
+    got = cf.bounded_best_rows_2p(dg, q, COSTS_2P, fs, end_ok, max_run)
+    torch.cuda.synchronize()
+    assert cf.bounded_best_rows_2p.launches == before + 1
+    assert torch.equal(got, cf.bounded_best_rows_2p_plain(
+        dg, q, COSTS_2P, fs, end_ok, max_run))
+    scores = cf.bounded_scores_2p(dg, q, lengths, COSTS_2P, fs, end_ok, jlo,
+                                  max_run)
+    assert torch.equal(scores, cf.bounded_scores_2p_plain(
+        dg, q, lengths, COSTS_2P, fs, end_ok, jlo, max_run))
+
+
+@pytest.mark.parametrize("shape,max_run", [
+    ((1500, 64, 600), 0), ((1500, 64, 600), 32),
+    # past 21k ranks, where the reference switches to its streamed twin
+    # B15: the port reads rank tables from global memory at any size
+    ((22000, 16, 900), 0), ((22000, 16, 900), 64)])
+def test_bounded_ends_2p_kernel_matches_plain(card, shape, max_run):
+    """B14: best rows and end ranks equal the plain version's; the best row
+    is B13's, and the (score, end rank, end offset) triples equal."""
+    g, reads = _backbone_case(23, *shape)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    fs, end_ok, jlo = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                              dg.n_nodes_padded, True)
+    before = cf.bounded_end_rows_2p.launches
+    got = cf.bounded_end_rows_2p(dg, q, COSTS_2P, fs, end_ok, max_run)
+    torch.cuda.synchronize()
+    assert cf.bounded_end_rows_2p.launches == before + 1
+    want = cf.bounded_end_rows_2p_plain(dg, q, COSTS_2P, fs, end_ok, max_run)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], cf.bounded_best_rows_2p(
+        dg, q, COSTS_2P, fs, end_ok, max_run))
+    triple = cf.bounded_with_ends_2p(dg, q, lengths, COSTS_2P, fs, end_ok,
+                                     jlo, max_run)
+    plain = cf._with_ends_from(want[0], want[1], lengths, jlo)
+    assert all(torch.equal(a, b) for a, b in zip(triple, plain))
+
+
+@pytest.mark.parametrize("fs,fe", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("two_piece", [False, True], ids=["1p", "2p"])
+def test_free_fill_kernels_match_plain(card, two_piece, fs, fe):
+    """B2f and B12f: B4's and B13's kernels under the end mask equal their
+    plain version at every lane; ``dp_fill_scores`` with a flag set
+    launches them, and without flags equals the global fill (B2, B12)."""
+    from poasta_tpu_torch.aligner.wavefront import dp_fill_scores
+
+    costs = COSTS_2P if two_piece else COSTS
+    wrapper = cf.free_fill_rows_2p if two_piece else cf.free_fill_rows
+    g, reads = _case(36, 400, 64, div=0.04)
+    reads = [r[(i % 7) * 20:] for i, r in enumerate(reads)]
+    dg = DeviceGraph.build(g.flatten(), device=card)
+    q, lengths = pack_queries(reads, device=card)
+    before = wrapper.launches
+    got = wrapper(dg, q, costs, fs, fe)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, cf.free_fill_rows_plain(dg, q, costs, fs, fe))
+    before = wrapper.launches
+    scores = dp_fill_scores(dg, q, lengths, costs, free_start=fs,
+                            free_end=fe)
+    assert wrapper.launches == before + (1 if fs or fe else 0)
+    assert torch.equal(scores, cf.free_fill_scores_plain(
+        dg, q, lengths, costs, fs, fe))
+    if not (fs or fe):
+        assert torch.equal(got, (cf.fill_end_rows_2p if two_piece
+                                 else cf.fill_end_rows)(dg, q, costs))
+
+
+@pytest.mark.parametrize("span", [SEMI_GLOBAL, BOUNDED],
+                         ids=["semi-global", "bounded"])
+def test_two_piece_ends_free_mapper_on_card(card, span):
+    """``BatchMapper`` under two-piece costs and an ends-free span: scores
+    through B13 equal the plain version's uncapped fill; ``align_batch``
+    runs B14, traces nothing on the device, and every alignment costs its
+    score."""
+    g, reads = _case(37, 600, 64, div=0.04)
+    mapper = BatchMapper(g, COSTS_2P, device=card, aln_type=span)
+    before = cf.bounded_best_rows_2p.launches
+    scores = mapper.score_batch(reads)
+    assert cf.bounded_best_rows_2p.launches > before
+    q, lengths = pack_queries(reads, device=card)
+    fs, end_ok, jlo = ends_free_device_params(mapper.flat, span, lengths,
+                                              mapper.dg.n_nodes_padded, True)
+    exact = cf.bounded_scores_2p_plain(mapper.dg, q, lengths, COSTS_2P, fs,
+                                       end_ok, jlo).cpu().numpy()
+    assert (scores == exact).all()
+    before = cf.bounded_end_rows_2p.launches
+    out = mapper.align_batch(reads)
+    assert cf.bounded_end_rows_2p.launches > before
+    assert [s for s, _ in out] == list(map(int, scores))
+    assert mapper.last_ends_free_stats["device_traced"] == 0
+    assert mapper.last_ends_free_stats["anchored_ok"] == len(reads)
+    for r, (s, aln) in zip(reads, out):
+        assert alignment_cost(g, r, aln, COSTS_2P) == s

@@ -301,10 +301,10 @@ def test_lasagna_gaf_golden(tmp_path, reference_tests_dir):
 
 
 def test_batch_mapper_rejects_unported_spans():
-    """An ends-free span scores and aligns; a span object of another
-    package is refused by name, not guessed at; an ends-free span with
-    two-piece costs is not ported yet (two-piece costs under the global
-    span are)."""
+    """An ends-free span scores and aligns, under one- and two-piece costs
+    (two-piece: a read must end at its last base, as the two-piece engines
+    rule, and scores equal poasta_tpu's); a span object of another package
+    is refused by name, not guessed at."""
     from poasta_tpu_torch import UNBOUNDED, EndsFree
     from poasta_tpu_torch import Global as PortGlobal
 
@@ -316,12 +316,22 @@ def test_batch_mapper_rejects_unported_spans():
     assert [s for s, _ in semi.align_batch([b"ACGT"])] == [0]
     from poasta_tpu_torch.aligner import GapAffine2Piece
 
+    from poasta_tpu.aligner import GapAffine2Piece as JaxGapAffine2Piece
+    from poasta_tpu.aligner.costs import UNBOUNDED as JAX_UNBOUNDED
+    from poasta_tpu.aligner.costs import EndsFree as JaxEndsFree
+
     two_piece = GapAffine2Piece(4, 2, 6, 1, 20)
-    with pytest.raises(NotImplementedError,
-                       match="two-piece ends-free is not ported yet"):
-        BatchMapper(g, two_piece, device="cpu",
-                    aln_type=EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED,
-                                      UNBOUNDED))
+    reads = [b"ACGT", b"TTTTTTGGGGGG"]
+    semi_2p = BatchMapper(g, two_piece, device="cpu",
+                          aln_type=EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED,
+                                            UNBOUNDED))
+    want = JaxMapper(g, JaxGapAffine2Piece(4, 2, 6, 1, 20),
+                     aln_type=JaxEndsFree(*[JAX_UNBOUNDED] * 4)).align_batch(
+                         reads)
+    assert list(semi_2p.score_batch(reads)) == [s for s, _ in want]
+    got = semi_2p.align_batch(reads)
+    assert [(s, list(a)) for s, a in got] == [(s, list(a)) for s, a in want]
+    assert got[1][0] > 0
     assert np.all(BatchMapper(g, two_piece, device="cpu").score_batch(
         [b"ACGT"]) > 0)
     with pytest.raises(TypeError):

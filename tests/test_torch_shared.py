@@ -166,3 +166,45 @@ def test_native_engine_raises_when_it_cannot_build(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         NativeAligner(_small_graph())
     assert port_native._lib is None
+
+
+def test_parallel_package_exports_batch_mapper():
+    """``from poasta_tpu_torch.parallel import BatchMapper``, the import
+    every caller of the reference's mapper writes, gives the port's."""
+    from poasta_tpu.parallel import BatchMapper as JaxMapper
+    from poasta_tpu_torch import parallel
+
+    assert parallel.BatchMapper is BatchMapper
+    assert parallel.__all__ == ["BatchMapper"]
+    assert JaxMapper is not BatchMapper
+
+
+@pytest.mark.parametrize("cli", ["poasta", "lasagna"])
+def test_port_clis_have_main_entry(cli, monkeypatch, capsys):
+    """Each port CLI has the console-script entry point the reference's
+    has: ``main()``'s return code becomes the exit status."""
+    import importlib
+
+    mod = importlib.import_module(f"poasta_tpu_torch.cli.{cli}")
+    monkeypatch.setattr(sys, "argv", [f"{cli}-torch"])
+    with pytest.raises(SystemExit) as exc:
+        mod.main_entry()
+    assert exc.value.code == 1
+    assert "No subcommand given." in capsys.readouterr().err
+
+
+def test_pyproject_names_the_port_scripts():
+    """``pyproject.toml`` installs the port's CLIs under their own names
+    beside the reference's, and names PyTorch as an optional extra."""
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        project = tomllib.load(fh)["project"]
+    assert project["scripts"] == {
+        "poasta": "poasta_tpu.cli.poasta:main_entry",
+        "lasagna": "poasta_tpu.cli.lasagna:main_entry",
+        "poasta-torch": "poasta_tpu_torch.cli.poasta:main_entry",
+        "lasagna-torch": "poasta_tpu_torch.cli.lasagna:main_entry",
+    }
+    assert project["optional-dependencies"]["torch"] == ["torch"]
+    assert project["dependencies"] == ["jax", "numpy"]

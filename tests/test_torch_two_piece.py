@@ -532,21 +532,33 @@ def test_mapper_2p_matches_jax(case):
 
 
 def test_two_piece_ends_free_is_not_ported_yet(case):
-    """An ends-free span with two-piece costs raises at every entry point
-    (slice 6), and the dense tables refuse two-piece costs, as the
+    """Every entry point that takes an ends-free span scores and aligns
+    under two-piece costs and equals poasta_tpu (8 reads, the JAX side on
+    its CPU route); the dense tables still refuse two-piece costs, as the
     reference's do."""
+    reads = case["reads"][:8]
     span = tcosts.EndsFree(tcosts.UNBOUNDED, tcosts.included(0),
                            tcosts.UNBOUNDED, tcosts.UNBOUNDED)
-    msg = "two-piece ends-free is not ported yet"
-    with pytest.raises(NotImplementedError, match=msg):
-        BatchMapper(case["graph"], T2P, device="cpu", aln_type=span)
-    with pytest.raises(NotImplementedError, match=msg):
-        BandedScorer(case["flat"], T2P, dg=case["tdg"], aln_type=span)
-    args = (case["tdg"], case["flat"], case["tq"], case["tl"], T2P, span)
-    with pytest.raises(NotImplementedError, match=msg):
-        twf.dp_fill_scores_ends_free(*args)
-    with pytest.raises(NotImplementedError, match=msg):
-        twf.dp_fill_ends_free_with_ends(*args)
+    jspan = jcosts.EndsFree(jcosts.UNBOUNDED, jcosts.included(0),
+                            jcosts.UNBOUNDED, jcosts.UNBOUNDED)
+    jq, jl = jwf.pack_queries(reads)
+    tq, tl = twf.pack_queries(reads, device="cpu")
+    want = np.asarray(jwf.dp_fill_scores_ends_free(
+        case["jdg"], case["flat"], jq, jl, J2P, jspan))
+    args = (case["tdg"], case["flat"], tq, tl, T2P, span)
+    np.testing.assert_array_equal(twf.dp_fill_scores_ends_free(*args).numpy(),
+                                  want)
+    np.testing.assert_array_equal(
+        twf.dp_fill_ends_free_with_ends(*args)[0].numpy(), want)
+    np.testing.assert_array_equal(
+        BandedScorer(case["flat"], T2P, dg=case["tdg"],
+                     aln_type=span).scores(tq, tl), want)
+    port = BatchMapper(case["graph"], T2P, device="cpu", aln_type=span)
+    np.testing.assert_array_equal(port.score_batch(reads), want)
+    got = port.align_batch(reads)
+    ref = JaxMapper(case["graph"], J2P, aln_type=jspan).align_batch(reads)
+    assert [(s, list(a)) for s, a in got] == [(s, list(a)) for s, a in ref]
+    assert [s for s, _ in got] == list(map(int, want))
     with pytest.raises(NotImplementedError, match="two-piece"):
         twf.dp_fill_full(case["tdg"], case["tq"], case["tl"], T2P)
 
