@@ -20,7 +20,13 @@ events, median of 5 after a warm-up:
 * B5 ``ef_best_rows`` at the recorded inputs (1024 fragments, Wb 4096);
 * B7 ``bounded_end_rows`` on the bench's pangenome configuration under the
   semi-global span: 64 reads of ~5 kb, 50,002 ranks, cap 4096, as the
-  first batch of ``lasagna align -m semi-global`` gives it.
+  first batch of ``lasagna align -m semi-global`` gives it;
+* B9's size, ``bounded_best_rows`` (B4) on the same inputs, uncapped, as
+  ``chip_smoke.py`` phase 11b runs it;
+* B11's size, ``banded_end_rows`` (B1) on phase 11a's 40,002-rank graph
+  and 64 reads of ~40 kb: at the inputs ``score_batch`` gives it (its
+  second call), and at ``scripts/bigbanded_40k.py``'s fixed windows of ub
+  3200.
 
 Each line carries a checksum of the kernel's output, so two trees can be
 seen to compute the same rows, and the card's name and power limit.  The
@@ -28,6 +34,7 @@ build's register counts are printed first.  Needs one card; imports no JAX.
 """
 
 import os
+import random
 import statistics
 import sys
 from unittest import mock
@@ -43,9 +50,17 @@ def main() -> int:
                            "False")
     sys.path.insert(0, REPO)
     from chip_smoke import (
+        BB_DIV,
+        BB_EDGE_EVERY,
+        BB_LEN,
+        BB_READS,
+        BB_SEED,
+        BB_UB,
         N_READS,
         PAN_BATCH,
+        _mutate,
         _time_ms,
+        backbone_graph,
         fragment_reads,
         mixed_reads,
         pangenome_workload,
@@ -132,6 +147,36 @@ def main() -> int:
     report("B7", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
            f"{dg.n_nodes} ranks, free_start {fs}, max_run 4096",
            lambda: cf.bounded_end_rows(dg, q, costs, fs, end_ok, 4096)[0])
+    report("B9 (B4)", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
+           f"{dg.n_nodes} ranks, free_start {fs}, uncapped",
+           lambda: cf.bounded_best_rows(dg, q, costs, fs, end_ok, 0))
+
+    rng = random.Random(BB_SEED)
+    graph, base = backbone_graph(rng, BB_LEN, BB_EDGE_EVERY)
+    reads = [_mutate(rng, base, BB_DIV).encode() for _ in range(BB_READS)]
+    with mock.patch.object(banded_mod, "banded_scores",
+                           keep("B11", cf.banded_scores)):
+        mapper = BatchMapper(graph, costs, device=dev)
+        mapper.score_batch(reads)  # learns the ub
+        mapper.score_batch(reads)
+    (dg, q, _, c, prep), kw = captured.pop("B11")
+    mr = kw.get("max_run", 0)
+    report("B11 (B1)", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
+           f"{dg.n_nodes} ranks, Wb {prep['width']}, max_run {mr}",
+           lambda: cf.banded_end_rows(dg, q, c, prep, mr))
+    del mapper
+    flat = graph.flatten()
+    dg = DeviceGraph.build(flat, device=dev)
+    q, lengths = pack_queries(reads, device=dev)
+    lens = lengths.cpu().numpy()
+    ws, width, _, _ = banded_mod.band_windows(
+        flat, int(lens.min()), int(lens.max()), costs, BB_UB)
+    prep = cf.prepare_banded(dg, costs, (ws // 128) * 128, width + 128,
+                             int(q.shape[1]))
+    report("B11 (B1) fixed windows", f"{int(q.shape[0])} reads, L "
+           f"{int(q.shape[1])}, {dg.n_nodes} ranks, Wb {prep['width']}, "
+           "uncapped",
+           lambda: cf.banded_end_rows(dg, q, costs, prep, 0))
     return 0
 
 

@@ -39,7 +39,9 @@ Phase 6 drives alignment, the second main path:
   one 6b batch gave them;
 * 6e aligns reads of a 45k-rank graph (past the JAX package's 1 MiB trace
   gate) on the default route, and again with ``POASTA_DEVICE_TRACE=0``:
-  alignments must be equal, and every read traced on the device.
+  alignments must be equal, and every read traced on the device; the B18
+  call with the most reads is timed again alone beside its bound (the
+  size of the reference's streamed trace kernel B19).
 
 Phase 7 drives ends-free and drifting-window scoring, the third main path,
 each run with every launch counter zeroed just before and read just after:
@@ -136,6 +138,29 @@ before and read just after (no banded, seeded or traced kernel serves it):
   per flag pair, then B13 and B14 at the inputs 10a and 10b gave them (B14
   on 8 reads of its call).
 
+Phase 11 runs the two TPU kernels that exist only past the reference's
+1 MiB scalar-prefetch gate by their port counterparts, at their own sizes
+(the card reads the rank tables from global memory at any size, so the port
+has no streamed twin), each run with the launch counters zeroed just
+before and read just after:
+
+* 11a ``scripts/bigbanded_40k.py``'s regime for B11 ``_banded_kernel_big``
+  (seed 23: a 40,000-base backbone with an edge ``v -> v+3`` every 977
+  nodes, P = 2, and 64 reads of the whole backbone at 1%, ~40 kb):
+  ``BatchMapper.score_batch`` twice, the user's path (tiers, placement,
+  wall and device memory printed; no read may fall to the full fill),
+  then B1 at the inputs ``score_batch`` gave it (the row's time and
+  bound), timed on the 64 reads and held against its plain version on 2;
+  then B1 on the script's fixed windows (``band_windows`` at ub 3200,
+  an extra field of the row), likewise; those scores bound
+  ``score_batch``'s from above, and reads 0-3 equal
+  ``NativeAligner.align_banded``;
+* 11b B9 ``_fill_kernel_bounded_big``'s: ``dp_fill_scores_ends_free``
+  under the CLI's semi-global span on phase 8's graph (50,002 ranks, P 2)
+  and 8a's 64 reads, one B4 launch at L 5,120, whose scores must equal
+  8a's uncapped B7 scores; B4 is held against its plain version on 2
+  reads, uncapped and at the cap of 8b's B7 call.
+
 The ``kernels`` line gives, for every kernel, its launches on the main
 paths, its time and its plain version's at the main path's shapes, and
 ``bound_ms``: the least time the card could take for the same work, the
@@ -153,6 +178,7 @@ Needs one card; imports no JAX.
 """
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -203,6 +229,16 @@ B12F_REPLACES = "poasta_tpu/ops/pallas_fill.py:1837"
 # phase 10c: 64 pieces of this many bases cut from the uniform reads
 FREE_SEED, FREE_READ_LEN = 29, 1000
 FREE_FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+# phase 11a: scripts/bigbanded_40k.py's shape (a 40,000-base backbone with
+# an edge v -> v+3 every 977 nodes, 64 reads of the whole backbone at 1%)
+# and its fixed windows (band_windows at ub 3200)
+BB_SEED, BB_LEN, BB_EDGE_EVERY, BB_READS, BB_DIV, BB_UB = (23, 40000, 977,
+                                                           64, 0.01, 3200)
+B9_REPLACES = "poasta_tpu/ops/pallas_fill.py:816"
+B11_REPLACES = "poasta_tpu/ops/pallas_fill.py:2202"
+# the plain versions walk every rank in host-driven steps whatever the
+# batch: phase 11 holds each kernel against them on this many reads
+BIG_PLAIN_READS = 2
 
 
 def _mutate(rng, s, d, target_len=None):
@@ -288,15 +324,15 @@ def fragment_reads(seqs, n_reads, lo, hi):
     return out
 
 
-def backbone_graph(rng, n):
+def backbone_graph(rng, n, every=PAN_EDGE_EVERY):
     """A linear graph of ``n`` random bases with an edge v -> v+3 every
-    ``PAN_EDGE_EVERY`` nodes; returns (graph, base)."""
+    ``every`` nodes; returns (graph, base)."""
     from poasta_tpu_torch import POAGraph
 
     base = "".join(rng.choice("ACGT") for _ in range(n))
     graph = POAGraph()
     graph.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
-    for v in range(0, n - 3, PAN_EDGE_EVERY):
+    for v in range(0, n - 3, every):
         graph.add_edge(v, v + 3, 0, 1)
     graph.post_process()
     return graph, base
@@ -708,8 +744,8 @@ def main() -> int:
     results.update(ef_results)
 
     # ---- 8. ends-free alignment on the pangenome configuration ------------
-    pan_results, pan_launches, pan_workload = pangenome_phases(card, dev,
-                                                               costs)
+    pan_results, pan_launches, pan_workload, pan_state = pangenome_phases(
+        card, dev, costs)
 
     # ---- 9. two-piece costs under the global span --------------------------
     tp_results, tp_launches = two_piece_phases(card, dev, graph, reads, base)
@@ -717,6 +753,10 @@ def main() -> int:
     # ---- 10. two-piece costs under ends-free spans; free graph ends ---------
     ef2_results, ef2_launches = ends_free_two_piece_phases(
         card, dev, graph, reads, *pan_workload)
+
+    # ---- 11. B9 and B11 at their own sizes ---------------------------------
+    big_results, big_launches = big_phases(card, dev, costs,
+                                           pan_workload[1], pan_state)
 
     def by_call(name):
         """A fill kernel's launches in each main-path call that used it."""
@@ -750,7 +790,8 @@ def main() -> int:
         {"name": "trace_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
          "replaces": B18_REPLACES, "launches": lasagna["launches"][2],
-         **trace_results["B18"]},
+         **trace_results["B18"],
+         "past_the_gate_6e": trace_results["B19"]},
         {"name": "trace_decode_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
          "replaces": DECODE_REPLACES, "launches": lasagna["launches"][3],
@@ -796,6 +837,17 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(calls.values()),
                         "launches_by_call": calls, **ef2_results[name]})
+    for name, kernel, source, replaces in (
+            ("B9", "full_fill_kernel<bounded> at 50,002 ranks", full,
+             B9_REPLACES),
+            ("B11", "banded_kernel<global> at 40k ranks x 40 kb reads", banded,
+             B11_REPLACES)):
+        calls = big_launches[name]
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": f"poasta_tpu_torch/csrc/{source}",
+                        "replaces": replaces,
+                        "launches": sum(calls.values()),
+                        "launches_by_call": calls, **big_results[name]})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} launched on no main path")
@@ -1044,15 +1096,40 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
         raise AssertionError("the 45k-rank batch did not take the banded "
                              "route")
     before = tr.trace_fill.launches
-    route_s = _align_routes(b_mapper, b_reads, token)
+    big_calls = []
+    real_trace = tr._launch_trace
+
+    def keep_trace(*args, **kwargs):
+        big_calls.append((args, kwargs))
+        return real_trace(*args, **kwargs)
+
+    with mock.patch.object(tr, "_launch_trace", keep_trace):
+        route_s = _align_routes(b_mapper, b_reads, token)
     if tr.trace_fill.launches <= before:
         raise AssertionError("B18 never launched on the 45k-rank graph")
+    # B18 past the reference's gate (its streamed twin B19's size): the
+    # call with the most reads again, timed alone (timing only: the counted
+    # runs compare B18 in 6d and 8d), and its bound
+    sig = inspect.signature(tr._launch_trace)
+    bound = [sig.bind(*a, **k).arguments for a, k in big_calls]
+    largest = max(bound, key=lambda b: (b["qpad"].shape[0], b["Wb"]))
+    g_dg, qpad, Wb = largest["dg"], largest["qpad"], largest["Wb"]
+    n_reads = int(qpad.shape[0])
+    results["B19"] = {"ms": _time_ms(lambda: tr.trace_fill(**largest), 3),
+                      "timing_only": True,
+                      "reads": n_reads, "Wb": Wb, "ranks": g_dg.n_nodes,
+                      **fill_bound(g_dg, n_reads, Wb, int(qpad.shape[1]),
+                                   g_dg.n_nodes * Wb + 1, tilted=True,
+                                   per_pred=TRACE_PRED_OPS,
+                                   per_rank=TRACE_OPS, table_cols=n_reads)}
     print(f"[big] {b_mapper.dg.n_nodes} ranks (Np {b_mapper.dg.n_nodes_padded}"
           f"), {BIG_READS} reads of {min(map(len, b_reads))}-"
           f"{max(map(len, b_reads))}: scoring {score_s:.2f} s; device trace "
           f"{route_s['device']:.3f} s ({tr.trace_fill.launches - before} B18 "
           f"launches), native host backtrace {route_s['host']:.3f} s on "
-          f"{os.cpu_count()} cores; alignments equal  [{card}]", flush=True)
+          f"{os.cpu_count()} cores; alignments equal; the largest B18 call "
+          f"({n_reads} reads, Wb {Wb}) {results['B19']['ms']:.3f} ms, bound "
+          f"{results['B19']['bound_ms']:.3f} ms  [{card}]", flush=True)
     _phase_done("6e 45k-rank graph")
     return results, {"launches": launches, "reads_per_s": len(reads) / dev_s}
 
@@ -1402,7 +1479,9 @@ def ends_free_phases(card, dev, costs, graph, seqs):
 
 def pangenome_phases(card, dev, costs):
     """Phases 8a-8d; returns (kernel comparisons of B7, B8 and B18 with
-    ``free_start``, their launches in the CLI run of 8b)."""
+    ``free_start``, their launches in the CLI run of 8b, the workload, and
+    what phase 11b reuses: the graph's device layout, 8a's uncapped B7
+    triple of its batch, the cap of 8b's B7 call)."""
     import tempfile
 
     import numpy as np
@@ -1614,6 +1693,7 @@ def pangenome_phases(card, dev, costs):
     # ---- 8d. B7, B8, B18 free_start at the main path's shapes ---------------
     results = {}
     _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B7"]
+    b7_cap = max_run
     L = int(q.shape[1])
     print(f"[kernels] B7 main path: {int(q.shape[0])} reads, L {L}, "
           f"{g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, plan "
@@ -1698,7 +1778,9 @@ def pangenome_phases(card, dev, costs):
         per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8))
     results["B18"]["reads_compared"] = 8
     _phase_done("8d B7, B8, B18 free_start at the main path's shapes")
-    return results, launches, (graph, reads)
+    # phase 11b runs B4 over this graph on 8a's batch
+    return results, launches, (graph, reads), {
+        "dg": dg, "flat": flat, "batch_exact": exact, "b7_cap": b7_cap}
 
 
 def msa_fasta(directory):
@@ -2284,6 +2366,221 @@ def ends_free_two_piece_phases(card, dev, uniform_graph, uniform_reads,
     results["B14"].update(reads_compared=8, whole_call_ms=full_ms,
                           whole_call_reads=int(q.shape[0]))
     _phase_done("10c B2f, B12f; B13, B14 at the main paths' shapes")
+    return results, launches
+
+
+def big_phases(card, dev, costs, pan_reads, pan):
+    """Phases 11a-11b: the reference's two kernels that exist only past its
+    scalar-prefetch gate, run by their port counterparts at their own sizes
+    (B11 by B1, B9 by B4); returns (their kernel rows, their launches on
+    each phase's main path)."""
+    import numpy as np
+    import torch
+
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        DeviceGraph,
+        EndsFree,
+        NativeAligner,
+        included,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import banded as banded_mod
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.ops import cuda_fill as cf
+
+    results, launches = {}, {}
+    # ---- 11a. B11's target regime: 40k ranks x 40 kb reads ----------------
+    t0 = time.perf_counter()
+    rng = random.Random(BB_SEED)
+    graph, base = backbone_graph(rng, BB_LEN, BB_EDGE_EVERY)
+    reads = [_mutate(rng, base, BB_DIV).encode() for _ in range(BB_READS)]
+    host = {"graph and reads": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    flat = graph.flatten()
+    host["flatten"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dg = DeviceGraph.build(flat, device=dev)
+    host["DeviceGraph.build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q, ln = pack_queries(reads, device=dev)
+    torch.cuda.synchronize()
+    host["pack_queries"] = time.perf_counter() - t0
+    lens = ln.cpu().numpy()
+    L = int(q.shape[1])
+    print(f"[big] 11a graph: {flat.n_nodes} ranks (Np {dg.n_nodes_padded}), W "
+          f"{dg.window}, P {int(dg.pred_slots.shape[1])}; {BB_READS} reads of "
+          f"{int(lens.min())}-{int(lens.max())}, L {L}; host s "
+          f"{ {k: round(v, 3) for k, v in host.items()} }", flush=True)
+
+    # the user's path: score_batch, twice (the first learns the ub); B1's
+    # inputs (the last call's) are kept so that its row is taken at the
+    # path's own shape
+    tiers, b1_call = [], []
+    real_banded = banded_mod.banded_scores
+
+    def rec_banded(g_dg, q_, ln_, c, p, max_run=0):
+        tiers.append((int(q_.shape[0]), p["width"], p["margin"], max_run))
+        b1_call[:] = [(g_dg, q_, c, p, max_run)]
+        return real_banded(g_dg, q_, ln_, c, p, max_run=max_run)
+
+    mapper = BatchMapper(graph, costs, device=dev)
+    walls, stats = [], []
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(banded_mod, "banded_scores", rec_banded):
+        cf.banded_end_rows.launches = 0
+        cf.fill_end_rows.launches = 0
+        for _ in range(2):
+            mapper.scorer.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = mapper.score_batch(reads)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stats.append(dict(mapper.scorer.stats))
+        launches["B11"] = {"score_batch 40 kb reads":
+                           cf.banded_end_rows.launches}
+        b2_launches = cf.fill_end_rows.launches
+    peak, mem1 = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    plans = sorted({(B, Wb, mr, cf.banded_plan(dg.window, Wb, m)["placement"])
+                    for B, Wb, m, mr in tiers})
+    print(f"[big] 11a score_batch({BB_READS} reads) x2: walls "
+          f"{[round(w, 3) for w in walls]} s ({BB_READS / walls[-1]:.2f} "
+          f"reads/s on the second), stats {stats}, ub hint "
+          f"{mapper.scorer._ub_hint}, tiers (reads, Wb, max_run, placement) "
+          f"{plans}, B1 launches {cf.banded_end_rows.launches}, B2 launches "
+          f"{b2_launches}; device memory before / peak / after "
+          f"{mem0} / {peak} / {mem1} B  [{card}]", flush=True)
+    if scores.shape != (BB_READS,) or not (scores < cf.INF).all():
+        raise AssertionError("11a: non-finite or misshaped scores")
+    if cf.banded_end_rows.launches <= 0:
+        raise AssertionError("11a: B1 never launched")
+    if b2_launches or any(st["fullfill_fallbacks"] for st in stats):
+        raise AssertionError(f"11a: a read fell to the full fill: {stats}")
+    g_dg, qb, c, p, mr = b1_call.pop()
+    # besides the B1 inputs kept here
+    kept = mem1 - mem0 - qb.numel() * qb.element_size()
+    if kept > 16 * 2 ** 20:
+        raise AssertionError(f"11a: {kept} B of device memory kept after "
+                             "the calls")
+
+    # B1 at the call score_batch made (the second run's, whose time
+    # PERF.md reports), held against its plain version on 2 of its reads
+    P = int(dg.pred_slots.shape[1])
+    plan = cf.banded_plan(g_dg.window, p["width"], p["margin"])
+    ms = _time_ms(lambda: cf.banded_end_rows(g_dg, qb, c, p, mr), 3)
+    qb2 = qb[:BIG_PLAIN_READS].contiguous()
+    results["B11"] = _compare(
+        f"B1 at score_batch's 40 kb tier, {BIG_PLAIN_READS} reads",
+        lambda: cf.banded_end_rows(g_dg, qb2, c, p, mr),
+        lambda: cf.banded_end_rows_plain(g_dg, qb2, c, p, mr), card, reps=3)
+    results["B11"].update(
+        reads_compared=BIG_PLAIN_READS, ms_compared=results["B11"]["ms"],
+        ms=ms, shape=[int(qb.shape[0]), p["width"]], max_run=mr,
+        placement=plan["placement"],
+        **fill_bound(g_dg, int(qb.shape[0]), p["width"], int(qb.shape[1]),
+                     p["width"], tilted=True, table_cols=1 + P))
+    print(f"[big] 11a B1 at score_batch's tier: {ms:.3f} ms for "
+          f"{int(qb.shape[0])} reads at Wb {p['width']}, max_run {mr}, plan "
+          f"{plan} (bound {results['B11']['bound_ms']:.3f} ms)  [{card}]",
+          flush=True)
+
+    # B1 on the script's fixed windows
+    ws, width, _, _ = banded_mod.band_windows(
+        flat, int(lens.min()), int(lens.max()), costs, BB_UB)
+    t0 = time.perf_counter()
+    prep = cf.prepare_banded(dg, costs, (ws // 128) * 128, width + 128, L)
+    prep_s = time.perf_counter() - t0
+    plan = cf.banded_plan(dg.window, prep["width"], prep["margin"])
+    print(f"[big] 11a fixed windows at ub {BB_UB}: Wb {prep['width']}, margin "
+          f"{prep['margin']}, prepare_banded {prep_s:.3f} s, plan {plan}",
+          flush=True)
+    # banded scores are upper bounds, exact where they verify (<= ub)
+    fixed = cf.banded_scores(dg, q, ln, costs, prep).cpu().numpy()
+    ok = fixed <= BB_UB
+    if not (fixed >= scores).all() or not (fixed[ok] == scores[ok]).all():
+        raise AssertionError("11a: the fixed windows' scores undercut or, "
+                             "verified, differ from score_batch's")
+    fixed_ms = _time_ms(lambda: cf.banded_end_rows(dg, q, costs, prep, 0), 3)
+    q2 = q[:BIG_PLAIN_READS].contiguous()
+    fixed_cmp = _compare(
+        f"B1 at 11a's fixed windows, {BIG_PLAIN_READS} reads",
+        lambda: cf.banded_end_rows(dg, q2, costs, prep, 0),
+        lambda: cf.banded_end_rows_plain(dg, q2, costs, prep, 0), card,
+        reps=3)
+    results["B11"]["max_abs_err"] = max(results["B11"]["max_abs_err"],
+                                        fixed_cmp["max_abs_err"])
+    results["B11"]["fixed_windows"] = {
+        "ms": fixed_ms, "plain_ms": fixed_cmp["plain_ms"],
+        "shape": [BB_READS, prep["width"]], "placement": plan["placement"],
+        "ub": BB_UB, "verified": int(ok.sum()),
+        **fill_bound(dg, BB_READS, prep["width"], L, prep["width"],
+                     tilted=True, table_cols=1 + P)}
+    na = NativeAligner(graph)
+    t0 = time.perf_counter()
+    native = _native_scores(na, reads[:4], costs)
+    if [int(s) for s in scores[:4]] != native:
+        raise AssertionError(f"11a: reads 0-3 {list(scores[:4])}, native "
+                             f"{native}")
+    print(f"[big] 11a B1 at the fixed windows {fixed_ms:.3f} ms for "
+          f"{BB_READS} reads at Wb {prep['width']} (bound "
+          f"{results['B11']['fixed_windows']['bound_ms']:.3f} ms); their "
+          f"scores bound score_batch's from above ({int(ok.sum())} of "
+          f"{BB_READS} verified at ub {BB_UB}, equal); score_batch's reads "
+          f"0-3 equal NativeAligner.align_banded "
+          f"({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
+    del mapper, dg, q, q2, prep, g_dg, qb, qb2
+    torch.cuda.empty_cache()
+    _phase_done("11a B1 at 40k ranks x 40 kb reads")
+
+    # ---- 11b. B9's size: B4 over the pangenome graph's 50,002 ranks -------
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    dg, flat = pan["dg"], pan["flat"]
+    q, ln = pack_queries(pan_reads[:PAN_BATCH], device=dev)
+    L = int(q.shape[1])
+    cf.bounded_best_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = wavefront_mod.dp_fill_scores_ends_free(dg, flat, q, ln, costs, semi)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches["B9"] = {"dp_fill_scores_ends_free pangenome":
+                      cf.bounded_best_rows.launches}
+    if cf.bounded_best_rows.launches != 1:
+        raise AssertionError(f"11b: {cf.bounded_best_rows.launches} B4 "
+                             "launches")
+    if not np.array_equal(got.cpu().numpy(), pan["batch_exact"][0]):
+        raise AssertionError("11b: B4's scores differ from 8a's B7 scores")
+    fs, end_ok, _ = wavefront_mod.ends_free_device_params(
+        flat, semi, ln, dg.n_nodes_padded)
+    plan = cf.bounded_plan(dg.window, L)
+    print(f"[big] 11b dp_fill_scores_ends_free({PAN_BATCH} reads, L {L}, "
+          f"{dg.n_nodes} ranks, P {int(dg.pred_slots.shape[1])}): "
+          f"{call_s:.3f} s, 1 B4 launch, plan {plan}; scores equal 8a's B7 "
+          f"scores  [{card}]", flush=True)
+    ms = _time_ms(lambda: cf.bounded_best_rows(dg, q, costs, fs, end_ok, 0), 3)
+    q2 = q[:BIG_PLAIN_READS].contiguous()
+    cmp = {cap: _compare(
+        f"B4 at 50,002 ranks, {BIG_PLAIN_READS} reads, max_run {cap}",
+        lambda c=cap: cf.bounded_best_rows(dg, q2, costs, fs, end_ok, c),
+        lambda c=cap: cf.bounded_best_rows_plain(dg, q2, costs, fs, end_ok,
+                                                 c), card, reps=3)
+        for cap in (0, pan["b7_cap"])}
+    results["B9"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in cmp.values()),
+        "ms": ms, "plain_ms": cmp[0]["plain_ms"],
+        "plain_ms_capped": cmp[pan["b7_cap"]]["plain_ms"],
+        "ms_compared": cmp[0]["ms"], "reads_compared": BIG_PLAIN_READS,
+        "cap_compared": pan["b7_cap"], "shape": [PAN_BATCH, L],
+        "placement": plan["placement"],
+        **fill_bound(dg, PAN_BATCH, L, L, L, tilted=False,
+                     per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
+                     table_cols=1)}
+    print(f"[big] 11b B4 {ms:.3f} ms for {PAN_BATCH} reads (bound "
+          f"{results['B9']['bound_ms']:.3f} ms)  [{card}]", flush=True)
+    _phase_done("11b B4 at 50,002 ranks")
     return results, launches
 
 

@@ -428,17 +428,22 @@ def test_ends_free_scores_on_card_match_exact_engine(card):
 
 # ---- ends-free alignment: B7, B8, the anchored trace ---------------------------
 
-def _backbone_case(seed, n, n_reads, read_len, div=0.015, skip_every=500):
+def _backbone(rng, n, skip_every):
     """A linear graph of ``n`` bases with an edge v -> v+3 every
-    ``skip_every`` nodes (the bench's pangenome shape) and reads cut from
-    it."""
-    rng = random.Random(seed)
+    ``skip_every`` nodes (the bench's pangenome shape); (graph, bases)."""
     base = "".join(rng.choice("ACGT") for _ in range(n))
     g = POAGraph()
     g.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
     for v in range(0, n - 3, skip_every):
         g.add_edge(v, v + 3, 0, 1)
     g.post_process()
+    return g, base
+
+
+def _backbone_case(seed, n, n_reads, read_len, div=0.015, skip_every=500):
+    """:func:`_backbone` and reads cut from it."""
+    rng = random.Random(seed)
+    g, base = _backbone(rng, n, skip_every)
     reads = []
     for _ in range(n_reads):
         a = rng.randrange(0, n - read_len)
@@ -845,3 +850,111 @@ def test_two_piece_ends_free_mapper_on_card(card, span):
     assert mapper.last_ends_free_stats["anchored_ok"] == len(reads)
     for r, (s, aln) in zip(reads, out):
         assert alignment_cost(g, r, aln, COSTS_2P) == s
+
+
+# ---- past the reference's size gates: B9's and B11's sizes ---------------------
+
+def _bubble_case(seed, n, n_alleles, block, n_reads, div=0.01):
+    """A ``n``-base backbone whose every other ``block``-base stretch has
+    ``n_alleles`` random alleles beside it (P = n_alleles + 1 at each
+    join), and reads of ``n`` bases along random paths at ``div``."""
+    from poasta_tpu_torch.aligner.alignment import AlignedPair
+
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(n))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
+    paths = [base]
+    for k in range(1, n_alleles + 1):
+        seq, aln = [], []
+        for start in range(0, n, block):
+            own = (start // block) % 2 == 1
+            for v in range(start, min(start + block, n)):
+                aln.append(AlignedPair(None if own else v, len(seq)))
+                seq.append(rng.choice("ACGT") if own else base[v])
+        paths.append("".join(seq))
+        g.add_alignment_with_weights(f"s{k}", paths[-1].encode(), aln,
+                                     [1] * n)
+    reads = []
+    for _ in range(n_reads):
+        mosaic = "".join(rng.choice(paths)[s:s + block]
+                         for s in range(0, n, block))
+        reads.append(_mutate(rng, mosaic, div).encode())
+    return g, reads
+
+
+@pytest.fixture(scope="module")
+def backbone_40k(card):
+    """The bench's pangenome shape at 40,000 bases (an edge v -> v+3 every
+    977 nodes, P = 2), past the reference's 1 MiB rank-table gate: 2
+    reads of 5 kb cut from it and one of the whole backbone, at 1%."""
+    rng = random.Random(43)
+    g, base = _backbone(rng, 40000, 977)
+    reads = []
+    for _ in range(2):
+        a = rng.randrange(0, 35000)
+        reads.append(_mutate(rng, base[a:a + 5000], 0.01).encode())
+    flat = g.flatten()
+    return (g, flat, DeviceGraph.build(flat, device=card), reads,
+            _mutate(rng, base, 0.01).encode())
+
+
+def test_bounded_kernel_past_the_reference_gate(card, backbone_40k):
+    """B4 on 40,002 ranks (the size of the reference's streamed B9) against
+    its plain version on 2 reads of 5 kb under the semi-global span."""
+    g, flat, dg, reads, _ = backbone_40k
+    assert flat.n_nodes >= 40000 and int(dg.pred_slots.shape[1]) == 2
+    q, lengths = pack_queries(reads, device=card)
+    fs, end_ok, _ = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                            dg.n_nodes_padded)
+    before = cf.bounded_best_rows.launches
+    got = cf.bounded_best_rows(dg, q, COSTS, fs, end_ok)
+    torch.cuda.synchronize()
+    assert cf.bounded_best_rows.launches == before + 1
+    assert torch.equal(got, cf.bounded_best_rows_plain(dg, q, COSTS, fs,
+                                                       end_ok))
+
+
+def test_banded_kernel_past_the_reference_gate(card):
+    """B1 on a 34k-rank bubble graph (P = 4) with 2 reads of 12 kb (the
+    size of the reference's streamed B11) against its plain version; the
+    verified scores equal the native engine's."""
+    g, reads = _bubble_case(47, 12000, 3, 1000, 2)
+    flat = g.flatten()
+    assert flat.n_nodes >= 30000
+    dg = DeviceGraph.build(flat, device=card)
+    assert int(dg.pred_slots.shape[1]) == 4
+    q, lengths = pack_queries(reads, device=card)
+    na = NativeAligner(g)
+    exact = [na.align_banded(r, COSTS)[0] for r in reads]
+    ub = max(exact) + 64
+    prep = _banded_prep(flat, dg, lengths, ub, int(q.shape[1]))
+    max_run = tbd.ins_run_cap(COSTS, ub, prep["width"])
+    before = cf.banded_end_rows.launches
+    got = cf.banded_end_rows(dg, q, COSTS, prep, max_run)
+    torch.cuda.synchronize()
+    assert cf.banded_end_rows.launches == before + 1
+    assert torch.equal(got, cf.banded_end_rows_plain(dg, q, COSTS, prep,
+                                                     max_run))
+    scores = cf.banded_scores(dg, q, lengths, COSTS, prep, max_run)
+    assert [int(s) for s in scores.cpu()] == exact
+
+
+def test_banded_kernel_full_width_40k_lanes_in_global_memory(card,
+                                                              backbone_40k):
+    """One 40 kb read on the 40,002-rank graph at the clamped full-width
+    tier, L = 40,960: rows and rings take the global-memory placement (a
+    block slab of 64-bit size); kernel and plain version agree and the
+    score is the native engine's."""
+    g, flat, dg, _, read = backbone_40k
+    q, lengths = pack_queries([read], device=card)
+    q = torch.nn.functional.pad(q, (0, 40960 - int(q.shape[1])))
+    prep = cf.prepare_banded(dg, COSTS, np.zeros(flat.n_nodes, np.int32),
+                             40960, 40960)
+    plan = cf.banded_plan(dg.window, prep["width"], prep["margin"])
+    assert prep["width"] == 40960 and plan["placement"] == "global"
+    got = cf.banded_end_rows(dg, q, COSTS, prep, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cf.banded_end_rows_plain(dg, q, COSTS, prep, 0))
+    score = cf.banded_scores(dg, q, lengths, COSTS, prep)
+    assert int(score[0]) == NativeAligner(g).align_banded(read, COSTS)[0]

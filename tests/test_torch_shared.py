@@ -103,6 +103,40 @@ def test_port_imports_nothing_of_the_jax_package():
                         and words[1] != "poasta_tpu", (path, line)
 
 
+def test_gpu_runner_and_port_sweep_import_nothing_of_the_jax_package():
+    """``run_gpu_tests.py`` and ``tests/test_torch_consistency.py`` run on
+    the card's machine, which has no JAX: importing them loads neither jax
+    nor poasta_tpu, and no source line of theirs imports either."""
+    code = ("import sys; sys.path[:0] = ['.', 'tests']; "
+            "import run_gpu_tests, test_torch_consistency; "
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'poasta_tpu'"
+            " or m.startswith(('jax.', 'poasta_tpu.'))]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    for name in ("run_gpu_tests.py", "tests/test_torch_consistency.py",
+                 "tests/test_torch_cuda.py"):
+        with open(os.path.join(REPO, name)) as fh:
+            for line in fh:
+                words = line.split()
+                if words[:1] in (["import"], ["from"]):
+                    assert not words[1].startswith(("jax", "poasta_tpu.")) \
+                        and words[1] != "poasta_tpu", (name, line)
+
+
+def test_gpu_runner_without_a_card_exits_1_with_a_message():
+    """No card visible: the runner says so and exits 1, with no traceback
+    and no test run on the CPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "run_gpu_tests.py"], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1
+    assert res.stdout.startswith("ERROR: no card:"), res.stdout
+    assert "Traceback" not in res.stderr, res.stderr
+    assert "card tests" not in res.stdout
+
+
 def _small_graph(cls=POAGraph):
     g = cls()
     g.add_alignment_with_weights("s0", b"ACGTACGTTGCA", None, [1] * 12)
