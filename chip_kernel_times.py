@@ -15,6 +15,16 @@ span, on 1024 fragments of 2,000-4,000 bases (B5), then times, with CUDA
 events, median of 5 after a warm-up:
 
 * B1 ``banded_end_rows`` at those inputs (1024 reads, Wb 3328);
+* B3 ``drift_end_rows`` and B6 ``drift_ef_best_rows`` at the inputs
+  ``score_batch`` gives them on the bench's mixed-length SV traffic (1024
+  reads, Wb 2304), the latter under the bench's bounded span;
+* B16 ``banded_end_rows_2p`` under ``GapAffine2Piece(4, 2, 8, 1, 24)`` at
+  the two tiers the main paths give it: the uniform reads' full-width tier
+  (1024 reads, Wb 5120, uncapped) and the mixed traffic's first tier
+  through ``BandedScorer.scores(max_retries=1)`` (1024 reads, Wb 4224, cap
+  2048: ``chip_smoke.py`` 9b's);
+* B17 ``drift_end_rows_2p`` at the mixed-length traffic's two-piece tier
+  (1024 reads, Wb 4480);
 * B2 ``fill_end_rows`` on 134 mixed-divergence reads at L 5120;
 * B4 ``bounded_best_rows`` on 256 fragments at L 4096, uncapped;
 * B5 ``ef_best_rows`` at the recorded inputs (1024 fragments, Wb 4096);
@@ -26,11 +36,20 @@ events, median of 5 after a warm-up:
 * B11's size, ``banded_end_rows`` (B1) on phase 11a's 40,002-rank graph
   and 64 reads of ~40 kb: at the inputs ``score_batch`` gives it (its
   second call), and at ``scripts/bigbanded_40k.py``'s fixed windows of ub
-  3200.
+  3200;
+* B16 on one of those reads at the first of those windows (Wb 10,752,
+  two-piece): one read a launch, as the MSA assist launches it, at a width
+  past the register body's, so the rows body runs;
+* the rows body of B1 and B17, on the same graph: B1 on the 64 reads at
+  the windows of ub 11,000 (Wb 11,264, past the register body's 10,752),
+  and B17 under the two-piece costs on the reads cut by up to 3 kb at the
+  end, at drifting windows of ub 3,000 (Wb 6,528, past 6,144).
 
 Each line carries a checksum of the kernel's output, so two trees can be
-seen to compute the same rows, and the card's name and power limit.  The
-build's register counts are printed first.  Needs one card; imports no JAX.
+seen to compute the same rows, the banded rows their launch plan, and the
+card's name and power limit.  The build's register counts are printed
+first.  Needs one card; imports no JAX.  Only names that the unpacked
+parent's ``chip_smoke.py`` also has are imported from it.
 """
 
 import os
@@ -40,6 +59,10 @@ import sys
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# Bands past the register body's reach on phase 11a's graph: B1's windows
+# at this ub are 11,264 lanes (past 10,752); B17's, two-piece on those
+# reads cut by up to 3 kb at the end, 6,528 (past 6,144).
+ROWS_B1_UB, ROWS_B17_UB = 11000, 3000
 
 
 def main() -> int:
@@ -50,6 +73,7 @@ def main() -> int:
                            "False")
     sys.path.insert(0, REPO)
     from chip_smoke import (
+        COSTS_2P,
         BB_DIV,
         BB_EDGE_EVERY,
         BB_LEN,
@@ -64,6 +88,7 @@ def main() -> int:
         fragment_reads,
         mixed_reads,
         pangenome_workload,
+        sv_workload,
         uniform_workload,
     )
     from poasta_tpu_torch import (
@@ -75,6 +100,7 @@ def main() -> int:
         included,
         pack_queries,
     )
+    from poasta_tpu_torch.aligner import GapAffine2Piece
     from poasta_tpu_torch.aligner import banded as banded_mod
     from poasta_tpu_torch.aligner.wavefront import ends_free_device_params
     from poasta_tpu_torch.ops import cuda_fill as cf
@@ -122,9 +148,14 @@ def main() -> int:
               f"of {[round(t, 3) for t in ts]}, checksum "
               f"{int(out.long().sum())}  [{card}]", flush=True)
 
+    def plan(variant, dg, prep, q):
+        return cf.variant_plan(variant, dg.window, prep["width"],
+                               prep["margin"], int(q.shape[1]))
+
     (dg, q, _, c, prep), kw = captured["B1"]
     mr = kw.get("max_run", 0)
-    report("B1", f"{int(q.shape[0])} reads, Wb {prep['width']}, max_run {mr}",
+    report("B1", f"{int(q.shape[0])} reads, Wb {prep['width']}, max_run {mr},"
+           f" plan {plan(cf.VARIANT_GLOBAL, dg, prep, q)}",
            lambda: cf.banded_end_rows(dg, q, c, prep, mr))
     qm, _ = pack_queries(mixed_reads(seqs[0])[:134], device=dev)
     report("B2", f"{int(qm.shape[0])} reads, L {int(qm.shape[1])}",
@@ -135,8 +166,65 @@ def main() -> int:
     report("B4", f"{int(q256.shape[0])} reads, L {int(q256.shape[1])}, "
            f"free_start {fs}, uncapped",
            lambda: cf.bounded_best_rows(dg, q256, c, fs, end_ok, 0))
-    report("B5", f"{int(q.shape[0])} reads, Wb {prep['width']}, max_run {mr}",
+    report("B5", f"{int(q.shape[0])} reads, Wb {prep['width']}, max_run {mr},"
+           f" plan {plan(cf.VARIANT_EF, dg, prep, q)}",
            lambda: cf.ef_best_rows(dg, q, c, prep, fs, end_ok, mr))
+
+    # the drifting-window and two-piece rows of the banded template
+    costs2p = GapAffine2Piece(*COSTS_2P)
+    bench_span = EndsFree(UNBOUNDED, included(50), included(0), included(50))
+    gsv, sv_reads = sv_workload(costs)
+    mixed = mixed_reads(seqs[0])
+    qm, lm = pack_queries(mixed, device=dev)
+    with mock.patch.object(banded_mod, "drift_scores",
+                           keep("B3", cf.drift_scores)), \
+            mock.patch.object(banded_mod, "drift_ef_scores",
+                              keep("B6", cf.drift_ef_scores)), \
+            mock.patch.object(banded_mod, "drift_scores_2p",
+                              keep("B17", cf.drift_scores_2p)):
+        for c, span in ((costs, None), (costs, bench_span), (costs2p, None)):
+            m = BatchMapper(gsv, c, device=dev, aln_type=span)
+            m.score_batch(sv_reads)  # converges the ub hint
+            m.score_batch(sv_reads)
+    with mock.patch.object(banded_mod, "banded_scores_2p",
+                           keep("B16 uniform", cf.banded_scores_2p)):
+        m = BatchMapper(graph, costs2p, device=dev)
+        m.score_batch(reads)
+        m.score_batch(reads)
+    with mock.patch.object(banded_mod, "banded_scores_2p",
+                           keep("B16 mixed", cf.banded_scores_2p)):
+        BatchMapper(graph, costs2p, device=dev).scorer.scores(
+            qm, lm, max_retries=1)
+
+    (dg, qpad, ln, c, prep, n_min), kw = captured["B3"]
+    mr = kw.get("max_run", 0)
+    nbs = cf.drift_units(ln, n_min)
+    report("B3", f"{int(qpad.shape[0])} reads, Wb {prep['width']}, margin "
+           f"{prep['margin']}, S {prep['S']}, max_run {mr}, plan "
+           f"{plan(cf.VARIANT_DRIFT, dg, prep, qpad)}",
+           lambda: cf.drift_end_rows(dg, qpad, nbs, c, prep, mr))
+    (dg, qpad, ln, c, prep, n_min, end_ok, jlo), kw = captured["B6"]
+    mr = kw.get("max_run", 0)
+    li, jl = ln.to(torch.int32).contiguous(), jlo.to(torch.int32).contiguous()
+    nbs = cf.drift_units(li, n_min)
+    report("B6", f"{int(qpad.shape[0])} reads, Wb {prep['width']}, margin "
+           f"{prep['margin']}, max_run {mr}, plan "
+           f"{plan(cf.VARIANT_DRIFT_EF, dg, prep, qpad)}",
+           lambda: cf.drift_ef_best_rows(dg, qpad, nbs, li, jl, c, prep,
+                                         end_ok, mr))
+    for tier in ("B16 mixed", "B16 uniform"):
+        (dg, q, _, c, prep), kw = captured[tier]
+        mr = kw.get("max_run", 0)
+        report(tier, f"{int(q.shape[0])} reads, Wb {prep['width']}, max_run "
+               f"{mr}, plan {plan(cf.VARIANT_GLOBAL_2P, dg, prep, q)}",
+               lambda: cf.banded_end_rows_2p(dg, q, c, prep, mr))
+    (dg, qpad, ln, c, prep, n_min), kw = captured["B17"]
+    mr = kw.get("max_run", 0)
+    nbs = cf.drift_units(ln, n_min)
+    report("B17", f"{int(qpad.shape[0])} reads, Wb {prep['width']}, margin "
+           f"{prep['margin']}, S {prep['S']}, max_run {mr}, plan "
+           f"{plan(cf.VARIANT_DRIFT_2P, dg, prep, qpad)}",
+           lambda: cf.drift_end_rows_2p(dg, qpad, nbs, c, prep, mr))
 
     pan_graph, pan_reads = pangenome_workload()
     flat = pan_graph.flatten()
@@ -164,6 +252,11 @@ def main() -> int:
     report("B11 (B1)", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
            f"{dg.n_nodes} ranks, Wb {prep['width']}, max_run {mr}",
            lambda: cf.banded_end_rows(dg, q, c, prep, mr))
+    q1 = q[:1].contiguous()
+    report("B16 one read, rows body", f"1 read, L {int(q.shape[1])}, "
+           f"{dg.n_nodes} ranks, Wb {prep['width']}, max_run {mr}, plan "
+           f"{plan(cf.VARIANT_GLOBAL_2P, dg, prep, q1)}",
+           lambda: cf.banded_end_rows_2p(dg, q1, costs2p, prep, mr))
     del mapper
     flat = graph.flatten()
     dg = DeviceGraph.build(flat, device=dev)
@@ -177,6 +270,35 @@ def main() -> int:
            f"{int(q.shape[1])}, {dg.n_nodes} ranks, Wb {prep['width']}, "
            "uncapped",
            lambda: cf.banded_end_rows(dg, q, costs, prep, 0))
+
+    # the rows body of the one-piece and drifting two-piece variants: B1 at
+    # a tier past its register body's 10,752 lanes, B17 past 6,144
+    ws, width, _, _ = banded_mod.band_windows(
+        flat, int(lens.min()), int(lens.max()), costs, ROWS_B1_UB)
+    prep = cf.prepare_banded(dg, costs, (ws // 128) * 128, width + 128,
+                             int(q.shape[1]))
+    report("B1 rows body", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
+           f"{dg.n_nodes} ranks, Wb {prep['width']} (ub {ROWS_B1_UB}), "
+           f"uncapped, plan {plan(cf.VARIANT_GLOBAL, dg, prep, q)}",
+           lambda: cf.banded_end_rows(dg, q, costs, prep, 0))
+    cut = random.Random(BB_SEED + 1)
+    short = [r[:len(r) - cut.randrange(0, 3000)] for r in reads]
+    q, lengths = pack_queries(short, device=dev)
+    lens = lengths.cpu().numpy()
+    n_min, n_max = int(lens.min()), int(lens.max())
+    S = banded_mod.drift_steps_for(n_min, n_max)
+    ws, width, s_ranks = banded_mod.band_windows_drift(
+        flat, n_min, n_max, costs2p, ROWS_B17_UB, S)
+    L = int(q.shape[1])
+    Lp = max(L, -(-(int(ws.max()) + width) // 128) * 128)
+    prep = cf.prepare_banded_drift(dg, costs2p, ws, width, s_ranks, S, Lp)
+    qpad = torch.nn.functional.pad(q, (prep["mq"], Lp - L)).contiguous()
+    nbs = cf.drift_units(lengths, n_min)
+    report("B17 rows body", f"{int(qpad.shape[0])} reads of {n_min}-{n_max},"
+           f" {dg.n_nodes} ranks, Wb {width} (ub {ROWS_B17_UB}), margin "
+           f"{prep['margin']}, S {S}, uncapped, plan "
+           f"{plan(cf.VARIANT_DRIFT_2P, dg, prep, qpad)}",
+           lambda: cf.drift_end_rows_2p(dg, qpad, nbs, costs2p, prep, 0))
     return 0
 
 

@@ -41,7 +41,9 @@ Phase 6 drives alignment, the second main path:
   gate) on the default route, and again with ``POASTA_DEVICE_TRACE=0``:
   alignments must be equal, and every read traced on the device; the B18
   call with the most reads is timed again alone beside its bound (the
-  size of the reference's streamed trace kernel B19).
+  size of the reference's streamed trace kernel B19).  Where B1's tier
+  passes 10,752 lanes, its rows body is timed on the last such call and
+  held against its plain version on one read.
 
 Phase 7 drives ends-free and drifting-window scoring, the third main path,
 each run with every launch counter zeroed just before and read just after:
@@ -114,7 +116,8 @@ just after:
   and every score the assist handed over equals the native engine's
   against the graph it was computed on;
 * 9f holds B12, B16 and B17 against their plain versions at the inputs
-  9a-9c gave them.
+  9a-9c gave them, and B16's rows body at 9e's last one-read launch that
+  took it.
 
 Phase 10 drives two-piece costs under ends-free spans, the sixth main
 path, with the same costs, each run with every launch counter zeroed just
@@ -169,7 +172,17 @@ output written once) over 3.35 TB/s and the integer operations its
 recurrence needs (``RECURRENCE_OPS`` and the constants beside it: what the
 function needs, not what the kernel spends) over the card's int32 rate
 (``INT32_OPS_PER_S``).  No single PyTorch call computes any of these
-recurrences, so ``library_ms`` is null throughout.
+recurrences, so ``library_ms`` is null throughout.  Each row of the banded
+template (B1, B3, B5, B6, B16, B17 and B11) also gives, at its shape, the
+body the plan chose, its threads, lanes a thread, barriers a rank (and at
+a drift re-frame) and shared memory (``banded_fields``), and counts the
+launches of its register body.  A main path's launches that the plan
+sends to the rows body (``banded_rows_kernel``: bands past the register
+body's 6,144-10,752 lanes) have rows of their own: B16's one-read
+launches of 9e, and B1's of 6e where its tier passes 10,752 lanes, each
+held against its plain version at the last such call.  Every rows-body
+launch of the run is counted, and the script fails if one came from a
+path with no such row.
 
 Any failure raises.  The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -419,6 +432,78 @@ def fill_bound(dg, B, lanes, q_lanes, out_lanes, tilted,
     return _bound(4 * (B * q_lanes + table_ints + B * out_lanes), ops)
 
 
+def banded_fields(plan):
+    """The kernels line's fields of a row of the banded template
+    (csrc/banded_kernel.cu): its body, block shape, barriers a rank (a
+    drift re-frame's apart) and shared memory at the row's shape."""
+    fields = {k: plan[k] for k in ("body", "threads", "lanes_per_thread",
+                                   "barriers_per_rank", "smem_bytes",
+                                   "placement")}
+    if "barriers_at_reframe" in plan:
+        fields["barriers_at_reframe"] = plan["barriers_at_reframe"]
+    fields["redesigned"] = (
+        "for Hopper: lanes in registers, van Herk scan"
+        if plan["body"] == "registers"
+        else "for Hopper: van Herk scan over thread chunks, int4 passes")
+    return fields
+
+
+# The wrappers of the banded template, by row.  Each counts in
+# ``rows_launches`` the launches its plan sent to the rows body
+# (banded_rows_kernel): a kernel of its own, with rows of its own in the
+# kernels line where a main path launches it.
+BANDED_WRAPPERS = {"B1": "banded_end_rows", "B3": "drift_end_rows",
+                   "B5": "ef_best_rows", "B6": "drift_ef_best_rows",
+                   "B16": "banded_end_rows_2p", "B17": "drift_end_rows_2p"}
+# Every rows-body launch of the run, by row (a patch of the launch, which
+# no phase zeroes); those of main paths that a rows-body row of the
+# kernels line reports; and the script's own (that row's comparison and
+# timing).  main() fails unless the first is the sum of the others: no
+# rows-body launch goes unchecked.
+ROWS_SEEN, ROWS_MAIN, ROWS_OWN = {}, {}, {}
+# The rows-body rows of the kernels line, by row: the comparison, time and
+# bound of a main path's rows-body launch at its own shape.
+ROWS_RESULTS = {}
+ROWS_KERNELS = {"B1": "banded_rows_kernel<global>",
+                "B16": "banded_rows_kernel<two-piece>"}
+
+
+def _count_rows_launches(cf):
+    """A patch of ``cf._launch_variant`` that adds each rows-body launch to
+    ROWS_SEEN."""
+    real = cf._launch_variant
+    names = {getattr(cf, w): b for b, w in BANDED_WRAPPERS.items()}
+
+    def launch(variant, wrapper, *args, **kwargs):
+        before = wrapper.rows_launches
+        out = real(variant, wrapper, *args, **kwargs)
+        b = names[wrapper]
+        ROWS_SEEN[b] = ROWS_SEEN.get(b, 0) + wrapper.rows_launches - before
+        return out
+    return mock.patch.object(cf, "_launch_variant", launch)
+
+
+@contextlib.contextmanager
+def _own_rows_launches():
+    """Books the rows-body launches made inside the block to ROWS_OWN."""
+    before = dict(ROWS_SEEN)
+    yield
+    for b, n in ROWS_SEEN.items():
+        ROWS_OWN[b] = ROWS_OWN.get(b, 0) + n - before.get(b, 0)
+
+
+def _check_rows_launches():
+    """Fails unless every rows-body launch was a main path's with a row of
+    its own, or that row's check."""
+    for b, n in ROWS_SEEN.items():
+        main_n = sum(ROWS_MAIN.get(b, {}).values())
+        if n != main_n + ROWS_OWN.get(b, 0):
+            raise AssertionError(
+                f"{b}: {n} rows-body launches, {main_n} on main paths with a "
+                f"rows-body row and {ROWS_OWN.get(b, 0)} of their checks: a "
+                "path sent a band to the rows body with no row to hold it")
+
+
 _PHASE_START = [time.perf_counter()]
 
 
@@ -522,6 +607,8 @@ def main() -> int:
         if "Used" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
     build.load()
+    rows_audit = _count_rows_launches(cf)
+    rows_audit.start()
 
     # ---- 3. kernels against their plain versions on the card ------------
     graph, seqs, reads = uniform_workload(costs)
@@ -697,18 +784,18 @@ def main() -> int:
     # ---- 4b. each kernel at the shapes the main path gave it -------------
     results = {}
     g_dg, q, c, p, max_run = captured[("uniform", "B1")]
+    plan = cf.banded_plan(g_dg.window, p["width"], p["margin"])
     print(f"[kernels] B1 main path: {int(q.shape[0])} reads, Lq "
           f"{int(q.shape[1])}, Wb {p['width']}, margin {p['margin']}, "
-          f"max_run {max_run}, plan "
-          f"{cf.banded_plan(g_dg.window, p['width'], p['margin'])}",
-          flush=True)
+          f"max_run {max_run}, plan {plan}", flush=True)
     results["B1"] = _compare(
         "B1 main path", lambda: cf.banded_end_rows(g_dg, q, c, p, max_run),
         lambda: cf.banded_end_rows_plain(g_dg, q, c, p, max_run), card,
         reps=3)
     results["B1"].update(fill_bound(
         g_dg, int(q.shape[0]), p["width"], int(q.shape[1]), p["width"],
-        tilted=True, table_cols=1 + int(g_dg.pred_slots.shape[1])))
+        tilted=True, table_cols=1 + int(g_dg.pred_slots.shape[1])),
+        max_run=max_run, **banded_fields(plan))
     g_dg, q, c = captured[("mixed", "B2")]
     print(f"[kernels] B2 main path (mixed tail): {int(q.shape[0])} reads, L "
           f"{int(q.shape[1])}, plan "
@@ -848,6 +935,18 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(calls.values()),
                         "launches_by_call": calls, **big_results[name]})
+    replaces = {"B1": B1_REPLACES, "B16": B16_REPLACES}
+    for name, res in ROWS_RESULTS.items():
+        calls = ROWS_MAIN[name]
+        kernels.append({"name": ROWS_KERNELS[name], "route": "cuda",
+                        "source": f"poasta_tpu_torch/csrc/{banded}",
+                        "replaces": replaces[name],
+                        "launches": sum(calls.values()),
+                        "launches_by_call": calls, **res})
+    rows_audit.stop()
+    _check_rows_launches()
+    print(f"[kernels] rows-body launches: {ROWS_SEEN}, on main paths "
+          f"{ROWS_MAIN}, their checks {ROWS_OWN}", flush=True)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} launched on no main path")
@@ -914,6 +1013,7 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
     import torch
 
     from poasta_tpu_torch import BatchMapper, pack_queries
+    from poasta_tpu_torch.aligner import banded as banded_mod
     from poasta_tpu_torch.ops import cuda_fill as cf
     from poasta_tpu_torch.ops import trace as tr
     from poasta_tpu_torch.parallel import mapper as mapper_mod
@@ -1088,25 +1188,65 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
     b_reads = [_mutate(big_rng, big_base, BIG_DIV).encode()
                for _ in range(BIG_READS)]
     b_mapper = BatchMapper(big, costs, device=dev)
-    t0 = time.perf_counter()
-    token = b_mapper.prescore(b_reads)
-    torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
-    if token is None:
-        raise AssertionError("the 45k-rank batch did not take the banded "
-                             "route")
-    before = tr.trace_fill.launches
-    big_calls = []
-    real_trace = tr._launch_trace
+    # B1's launches that the plan sends to the rows body (bands past
+    # 10,752 lanes), and the last such call
+    b1_rows, real_b1 = [], banded_mod.banded_scores
 
-    def keep_trace(*args, **kwargs):
-        big_calls.append((args, kwargs))
-        return real_trace(*args, **kwargs)
+    def rec_b1(g_dg, q, ln, c, p, max_run=0):
+        if cf.banded_plan(g_dg.window, p["width"],
+                          p["margin"])["body"] == "rows":
+            b1_rows[:] = [(g_dg, q, c, p, max_run)]
+        return real_b1(g_dg, q, ln, c, p, max_run=max_run)
 
-    with mock.patch.object(tr, "_launch_trace", keep_trace):
-        route_s = _align_routes(b_mapper, b_reads, token)
+    cf.banded_end_rows.rows_launches = 0
+    with mock.patch.object(banded_mod, "banded_scores", rec_b1):
+        t0 = time.perf_counter()
+        token = b_mapper.prescore(b_reads)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        if token is None:
+            raise AssertionError("the 45k-rank batch did not take the banded "
+                                 "route")
+        before = tr.trace_fill.launches
+        big_calls = []
+        real_trace = tr._launch_trace
+
+        def keep_trace(*args, **kwargs):
+            big_calls.append((args, kwargs))
+            return real_trace(*args, **kwargs)
+
+        with mock.patch.object(tr, "_launch_trace", keep_trace):
+            route_s = _align_routes(b_mapper, b_reads, token)
+    b1_rows_n = cf.banded_end_rows.rows_launches
     if tr.trace_fill.launches <= before:
         raise AssertionError("B18 never launched on the 45k-rank graph")
+    if b1_rows_n:
+        # held against its plain version on one read (the plain version
+        # walks the 45k ranks in host-driven steps), timed on the call
+        g_dg, q, c, p, mr = b1_rows[0]
+        plan = cf.banded_plan(g_dg.window, p["width"], p["margin"])
+        q1 = q[:1].contiguous()
+        with _own_rows_launches():
+            ms = _time_ms(lambda: cf.banded_end_rows(g_dg, q, c, p, mr), 3)
+            res = _compare(
+                "B1 rows body at 6e's tier, 1 read",
+                lambda: cf.banded_end_rows(g_dg, q1, c, p, mr),
+                lambda: cf.banded_end_rows_plain(g_dg, q1, c, p, mr), card,
+                reps=3)
+        res.update(
+            reads_compared=1, ms_compared=res["ms"], ms=ms,
+            shape=[int(q.shape[0]), p["width"]], max_run=mr,
+            ranks=g_dg.n_nodes, **banded_fields(plan),
+            **fill_bound(g_dg, int(q.shape[0]), p["width"], int(q.shape[1]),
+                         p["width"], tilted=True,
+                         table_cols=1 + int(g_dg.pred_slots.shape[1])))
+        if res["body"] != "rows":
+            raise AssertionError(f"6e B1 rows body: plan {plan}")
+        print(f"[big] 6e B1 rows body: {ms:.3f} ms for {int(q.shape[0])} "
+              f"reads at Wb {p['width']}, max_run {mr}, plan {plan} (bound "
+              f"{res['bound_ms']:.3f} ms)  [{card}]", flush=True)
+        ROWS_RESULTS["B1"] = res
+        ROWS_MAIN["B1"] = {"6e prescore and align, 45k-rank graph": b1_rows_n}
     # B18 past the reference's gate (its streamed twin B19's size): the
     # call with the most reads again, timed alone (timing only: the counted
     # runs compare B18 in 6d and 8d), and its bound
@@ -1127,7 +1267,8 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
           f"{max(map(len, b_reads))}: scoring {score_s:.2f} s; device trace "
           f"{route_s['device']:.3f} s ({tr.trace_fill.launches - before} B18 "
           f"launches), native host backtrace {route_s['host']:.3f} s on "
-          f"{os.cpu_count()} cores; alignments equal; the largest B18 call "
+          f"{os.cpu_count()} cores; alignments equal; B1 rows-body launches "
+          f"{b1_rows_n}; the largest B18 call "
           f"({n_reads} reads, Wb {Wb}) {results['B19']['ms']:.3f} ms, bound "
           f"{results['B19']['bound_ms']:.3f} ms  [{card}]", flush=True)
     _phase_done("6e 45k-rank graph")
@@ -1414,7 +1555,8 @@ def ends_free_phases(card, dev, costs, graph, seqs):
     P = int(dg.pred_slots.shape[1])
     results["B3"].update(fill_bound(
         dg, int(qpad.shape[0]), prep["width"], int(qpad.shape[1]) + 1,
-        prep["width"], tilted=True, table_cols=3 + P))
+        prep["width"], tilted=True, table_cols=3 + P), max_run=mr,
+        **banded_fields(plan))
 
     _, (dg, qpad, ln, c, prep, n_min, end_ok, jlo), kw = captured["B6"]
     li, jl = ln.to(torch.int32).contiguous(), jlo.to(torch.int32).contiguous()
@@ -1437,7 +1579,7 @@ def ends_free_phases(card, dev, costs, graph, seqs):
         dg, int(qpad.shape[0]), prep["width"], int(qpad.shape[1]) + 3,
         prep["width"], tilted=True,
         per_rank=RECURRENCE_OPS + 5 * int(end_ok.sum()) / dg.n_nodes,
-        table_cols=4 + P))
+        table_cols=4 + P), max_run=mr, **banded_fields(plan))
 
     _, (dg, q, ln, c, prep, fs, end_ok, jlo), kw = captured["B5"]
     mr = kw.get("max_run", 0)
@@ -1456,7 +1598,7 @@ def ends_free_phases(card, dev, costs, graph, seqs):
         dg, int(q.shape[0]), prep["width"], int(q.shape[1]),
         int(q.shape[1]), tilted=True,
         per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
-        table_cols=2 + P))
+        table_cols=2 + P), max_run=mr, **banded_fields(plan))
 
     _, (dg, q, ln, c, fs, end_ok, jlo), kw = captured["B4"]
     mr = kw.get("max_run", 0)
@@ -1834,22 +1976,34 @@ def two_piece_phases(card, dev, graph, reads, base):
     launches, captured, on_main_path = {}, {}, [False]
 
     def keep(name, fn):
-        # the widest batch of the main-path calls (the last such call)
+        # the widest batch of the main-path calls (the last such call);
+        # apart, B16's last call that the plan sends to the rows body
         def rec(*args, **kwargs):
             B = int(args[1].shape[0])
             if on_main_path[0] and B >= captured.get(name, (0,))[0]:
                 captured[name] = (B, args, kwargs)
+            if on_main_path[0] and name == "B16" and cf.banded_plan(
+                    args[0].window, args[4]["width"], args[4]["margin"],
+                    True)["body"] == "rows":
+                captured["B16 rows"] = (B, args, kwargs)
             return fn(*args, **kwargs)
         return rec
 
     def zero():
         for k in fills.values():
             k.launches = 0
+        for name in ("B16", "B17"):
+            fills[name].rows_launches = 0
         on_main_path[0] = True
 
     def read(call):
+        # the banded rows count register-body launches; "B16 rows" and
+        # "B17 rows" the rows body's
         on_main_path[0] = False
         launches[call] = {name: k.launches for name, k in fills.items()}
+        for name in ("B16", "B17"):
+            launches[call][f"{name} rows"] = fills[name].rows_launches
+            launches[call][name] -= fills[name].rows_launches
         return launches[call]
 
     def plain_path(fn):
@@ -2081,11 +2235,10 @@ def two_piece_phases(card, dev, graph, reads, base):
     _, (dg, q, ln, c, prep), kw = captured["B16"]
     mr = kw.get("max_run", 0)
     P = int(dg.pred_slots.shape[1])
+    plan = cf.banded_plan(dg.window, prep["width"], prep["margin"], True)
     print(f"[kernels] B16 main path: {int(q.shape[0])} reads, Lq "
           f"{int(q.shape[1])}, Wb {prep['width']}, margin {prep['margin']}, "
-          f"max_run {mr}, plan "
-          f"{cf.banded_plan(dg.window, prep['width'], prep['margin'], True)}",
-          flush=True)
+          f"max_run {mr}, plan {plan}", flush=True)
     results["B16"] = _compare(
         "B16 main path", lambda: cf.banded_end_rows_2p(dg, q, c, prep, mr),
         lambda: cf.banded_end_rows_2p_plain(dg, q, c, prep, mr), card,
@@ -2093,7 +2246,7 @@ def two_piece_phases(card, dev, graph, reads, base):
     results["B16"].update(fill_bound(
         dg, int(q.shape[0]), prep["width"], int(q.shape[1]), prep["width"],
         tilted=False, per_pred=PRED_OPS_2P, per_rank=RECURRENCE_OPS_2P,
-        table_cols=1 + P))
+        table_cols=1 + P), max_run=mr, **banded_fields(plan))
 
     _, (dg, qpad, ln, c, prep, n_min), kw = captured["B17"]
     nbs = cf.drift_units(ln, n_min)
@@ -2112,7 +2265,36 @@ def two_piece_phases(card, dev, graph, reads, base):
     results["B17"].update(fill_bound(
         dg, int(qpad.shape[0]), prep["width"], int(qpad.shape[1]) + 1,
         prep["width"], tilted=False, per_pred=PRED_OPS_2P,
-        per_rank=RECURRENCE_OPS_2P, table_cols=3 + P))
+        per_rank=RECURRENCE_OPS_2P, table_cols=3 + P), max_run=mr,
+        **banded_fields(plan))
+
+    # B16's rows body (bands past the register body's 8,192 lanes): the
+    # MSA assist's one-read launches on 9e's growing graph, its last one
+    rows_calls = {call: n["B16 rows"] for call, n in launches.items()
+                  if n["B16 rows"]}
+    if rows_calls:
+        _, (dg, q, ln, c, prep), kw = captured["B16 rows"]
+        mr = kw.get("max_run", 0)
+        P = int(dg.pred_slots.shape[1])
+        plan = cf.banded_plan(dg.window, prep["width"], prep["margin"], True)
+        print(f"[kernels] B16 rows body (9e's last such launch): "
+              f"{int(q.shape[0])} read, {dg.n_nodes} ranks, Lq "
+              f"{int(q.shape[1])}, Wb {prep['width']}, margin "
+              f"{prep['margin']}, max_run {mr}, plan {plan}", flush=True)
+        with _own_rows_launches():
+            res = _compare(
+                "B16 rows body",
+                lambda: cf.banded_end_rows_2p(dg, q, c, prep, mr),
+                lambda: cf.banded_end_rows_2p_plain(dg, q, c, prep, mr), card,
+                reps=3)
+        res.update(fill_bound(
+            dg, int(q.shape[0]), prep["width"], int(q.shape[1]),
+            prep["width"], tilted=False, per_pred=PRED_OPS_2P,
+            per_rank=RECURRENCE_OPS_2P, table_cols=1 + P), max_run=mr,
+            ranks=dg.n_nodes, **banded_fields(plan))
+        if res["body"] != "rows":
+            raise AssertionError(f"B16 rows body: plan {plan}")
+        ROWS_RESULTS["B16"], ROWS_MAIN["B16"] = res, rows_calls
 
     _, (dg, q, ln, c), _ = captured["B12"]
     L = int(q.shape[1])
@@ -2479,7 +2661,7 @@ def big_phases(card, dev, costs, pan_reads, pan):
     results["B11"].update(
         reads_compared=BIG_PLAIN_READS, ms_compared=results["B11"]["ms"],
         ms=ms, shape=[int(qb.shape[0]), p["width"]], max_run=mr,
-        placement=plan["placement"],
+        **banded_fields(plan),
         **fill_bound(g_dg, int(qb.shape[0]), p["width"], int(qb.shape[1]),
                      p["width"], tilted=True, table_cols=1 + P))
     print(f"[big] 11a B1 at score_batch's tier: {ms:.3f} ms for "
@@ -2514,7 +2696,7 @@ def big_phases(card, dev, costs, pan_reads, pan):
                                         fixed_cmp["max_abs_err"])
     results["B11"]["fixed_windows"] = {
         "ms": fixed_ms, "plain_ms": fixed_cmp["plain_ms"],
-        "shape": [BB_READS, prep["width"]], "placement": plan["placement"],
+        "shape": [BB_READS, prep["width"]], **banded_fields(plan),
         "ub": BB_UB, "verified": int(ok.sum()),
         **fill_bound(dg, BB_READS, prep["width"], L, prep["width"],
                      tilted=True, table_cols=1 + P)}

@@ -48,7 +48,7 @@ DRIFT_PREP_TENSORS = ("pred_wstarts", "wstarts", "s_ranks", "s_prev")
 def drift_prep_from_reference(prep: dict, device=None) -> dict:
     """The reference's ``prepare_banded_drift`` dict, its arrays as numpy,
     as the port's drift fills take it: the same tables on ``device``, and
-    the window bounds the launcher checks."""
+    the window bounds and 128-lane alignment the launcher checks."""
     device = resolve_device(device)
     ws = np.asarray(prep["wstarts"], dtype=np.int32)
     out = {k: int(prep[k]) for k in ("margin", "width", "mq", "S", "L",
@@ -57,6 +57,7 @@ def drift_prep_from_reference(prep: dict, device=None) -> dict:
         out[k] = torch.tensor(np.asarray(prep[k], dtype=np.int32),
                               device=device)
     out["wstarts_min"], out["wstarts_max"] = int(ws.min()), int(ws.max())
+    out["aligned"] = bool((ws % 128 == 0).all())
     return out
 
 

@@ -18,6 +18,10 @@ enum PoastaPlacement {
     PLACE_SMEM = 0,          // rows and rings in shared memory
     PLACE_RINGS_GLOBAL = 1,  // rows in shared memory, rings in global memory
     PLACE_GLOBAL = 2,        // rows and rings in global memory
+    // the banded register body's fourth (banded_plan): the M and D1 rings
+    // in shared memory, the D2 ring in the block's global slab, for
+    // two-piece rings that do not fit whole
+    PLACE_RINGS_SPLIT = 3,
 };
 
 struct PoastaPlan {
@@ -27,8 +31,11 @@ struct PoastaPlan {
     long long global_ints;  // per block
 };
 
-// Number of scratch rows each kernel keeps: min_pm, D, A, and the two
-// ping-pong buffers of the prefix-min scan.
+// Number of scratch rows a row-based kernel keeps (the full, seeded and
+// trace fills, the banded rows body): min_pm, D, A, and two rows for the
+// prefix-min scan (block_prefix_min's ping-pong buffers, or the banded
+// window scan's input and suffix row).  The banded register body keeps
+// none: it places its rings by banded_plan's own rule.
 #define POASTA_ROWS 5
 
 // `row_ints` is the size of the scratch-row region (POASTA_ROWS rows of

@@ -26,12 +26,17 @@ Port of ``poasta_tpu/ops/pallas_fill.py``.  TPU kernel -> wrapper here
   (banded_kernel.cu)
 
 ``banded_kernel.cu`` and ``fill_kernel.cu`` each hold one kernel template;
-the variants are its compile-time instantiations.
+the variants are its compile-time instantiations.  The banded template has
+two bodies, which :func:`variant_plan` chooses by band width: up to 10,752
+lanes (B1; 8,192 for B3, B5, B6 and B16, 6,144 for B17) each thread holds
+4, 8 or 16 lanes of a rank in registers, past that a rows body keeps
+scratch rows (``csrc/banded_kernel.cu``'s note).
 
 Two-piece costs (B12-B17) run the same recurrence with a third ring
-(D2) and one more scratch row.  Only M = min(A, I1, I2) enters a ring, and
-``GapAffine2Piece`` has e1 >= e2, so a run of k >= 1 inserted lanes costs
-o1 + e1 + (k - 1) * e2 at best (switch to piece 2 at once, never reopen):
+(D2) and, in the bodies that keep scratch rows, one more row.  Only
+M = min(A, I1, I2) enters a ring, and ``GapAffine2Piece`` has e1 >= e2, so
+a run of k >= 1 inserted lanes costs o1 + e1 + (k - 1) * e2 at best
+(switch to piece 2 at once, never reopen):
 min(I1, I2) is the one-piece insertion row with slope e2 and open
 o1 + e1 - e2, one truncated prefix-min of A - e2*lane, not the TPU kernels'
 coupled 2x2 min-plus scan (:func:`fill_constants`;
@@ -44,7 +49,9 @@ Each fill has:
 
 * a kernel wrapper: on a CUDA tensor it launches the kernel or raises; on
   a CPU tensor it runs the plain version.  ``<wrapper>.launches`` counts
-  kernel launches, and nothing else;
+  kernel launches, and nothing else; a wrapper of the banded template also
+  counts in ``<wrapper>.rows_launches`` those of its launches that the
+  plan sent to the rows body (``banded_rows_kernel``);
 * a plain PyTorch version (``*_plain``): a loop over ranks on (B, lanes)
   int32 tensors with the kernel's tilt, truncation, INF and frame-roll
   rules, so the raw rows agree bit for bit;
@@ -63,7 +70,10 @@ import torch
 from ..utils import build
 from .dp_rows import INF, _shift_right
 
-PLACEMENTS = ("smem", "rings-global", "global")
+# by csrc/common.cuh's PoastaPlacement codes
+PLACEMENTS = ("smem", "rings-global", "global", "rings-split")
+# the bodies of csrc/banded_kernel.cu, by the code its plan returns
+BODIES = ("registers", "rows")
 # variant codes of csrc/banded_kernel.cu (the TPU kernels' B numbers)
 VARIANT_GLOBAL, VARIANT_DRIFT, VARIANT_EF, VARIANT_DRIFT_EF = 1, 3, 5, 6
 VARIANT_GLOBAL_2P, VARIANT_DRIFT_2P = 16, 17
@@ -164,11 +174,30 @@ def bounded_plan(W: int, L: int, ends: bool = False,
 
 def variant_plan(variant: int, W: int, width: int, margin: int,
                  Lq: int) -> dict:
-    """Launch shape and placement of a banded variant (``VARIANT_GLOBAL``,
-    ``VARIANT_DRIFT``, ``VARIANT_EF``, ``VARIANT_DRIFT_EF``,
-    ``VARIANT_GLOBAL_2P``, ``VARIANT_DRIFT_2P``) on query rows of ``Lq``
-    lanes (only the ends-free variants' placement depends on it)."""
-    return _plan("poasta_banded_plan", variant, W, width, margin, Lq)
+    """Launch shape, body and placement of a banded variant
+    (``VARIANT_GLOBAL``, ``VARIANT_DRIFT``, ``VARIANT_EF``,
+    ``VARIANT_DRIFT_EF``, ``VARIANT_GLOBAL_2P``, ``VARIANT_DRIFT_2P``) on
+    query rows of ``Lq`` lanes (only ``VARIANT_EF``'s placement depends on
+    it).  ``body`` is "registers" (each thread holds ``lanes_per_thread``
+    lanes of the rank in registers) or "rows" (bands past the register
+    body's reach, 6,144-10,752 lanes by variant: scratch rows,
+    ``lanes_per_thread`` the scan's chunk); ``barriers_per_rank`` leaves
+    out the one a drift re-frame adds."""
+    lib = build.load()
+    outs = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()] \
+        + [ctypes.c_int() for _ in range(3)]
+    build.check(lib, lib.poasta_banded_plan(
+        variant, W, width, margin, Lq, *map(ctypes.byref, outs)),
+        "poasta_banded_plan")
+    threads, mode, smem, gints, body, lanes, barriers = (o.value
+                                                         for o in outs)
+    plan = {"threads": threads, "placement": PLACEMENTS[mode],
+            "smem_bytes": smem, "global_ints_per_read": gints,
+            "body": BODIES[body], "lanes_per_thread": lanes,
+            "barriers_per_rank": barriers}
+    if variant in (VARIANT_DRIFT, VARIANT_DRIFT_EF, VARIANT_DRIFT_2P):
+        plan["barriers_at_reframe"] = barriers + 1
+    return plan
 
 
 def _workspace(plan: dict, B: int, dev) -> torch.Tensor:
@@ -220,6 +249,12 @@ def _window_tables(dg, wstarts_np):
     return ws, pw, margin
 
 
+def _aligned(wstarts_np) -> bool:
+    """Whether every window starts on a 128-lane boundary, as the banded
+    kernel's int4 ring and query accesses need."""
+    return bool((np.asarray(wstarts_np) % 128 == 0).all())
+
+
 def prepare_banded(dg, costs, wstarts_np, width: int, L: int) -> dict:
     """The banded fill's per-rank window tables and margin for a window
     layout, placed on the graph's device.  Callers cache the result."""
@@ -233,6 +268,7 @@ def prepare_banded(dg, costs, wstarts_np, width: int, L: int) -> dict:
         "wstarts": torch.as_tensor(ws, device=dg.device),
         "w_end": int(ws[dg.end_rank_i]),
         "wstarts_max": int(ws.max()),
+        "aligned": _aligned(ws),
     }
 
 
@@ -262,6 +298,7 @@ def prepare_banded_drift(dg, costs, wstarts_np, width: int, s_ranks_np,
         "w_end": int(ws[dg.end_rank_i]),
         "wstarts_min": int(ws.min()),
         "wstarts_max": int(ws.max()),
+        "aligned": _aligned(ws),
     }
 
 
@@ -419,6 +456,10 @@ def _launch_variant(variant: int, wrapper, dg, q, costs, prep, max_run,
                          f" past the query row ({Lq})")
     if prep.get("wstarts_min", 0) + mq < 0:
         raise ValueError("a window starts left of the query's pad")
+    if Wb % 128 or margin % 128 or not prep["aligned"]:
+        raise ValueError("the banded kernel takes 128-aligned windows: width "
+                         f"{Wb}, margin {margin}, aligned starts "
+                         f"{prep['aligned']}")
     operands = {"qshift": q, "symbols": dg.symbols,
                 "pred_slots": dg.pred_slots_flat,
                 "pred_valid": dg.pred_valid_flat,
@@ -459,6 +500,8 @@ def _launch_variant(variant: int, wrapper, dg, q, costs, prep, max_run,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, f"banded fill kernel (variant {variant}) launch")
     wrapper.launches += 1
+    if plan["body"] == "rows":
+        wrapper.rows_launches += 1
     return out
 
 
@@ -520,6 +563,7 @@ def banded_end_rows(dg, qshift: torch.Tensor, costs, prep: dict,
 
 
 banded_end_rows.launches = 0
+banded_end_rows.rows_launches = 0
 
 
 def _banded_scores_from(end_row, lengths, prep, costs) -> torch.Tensor:
@@ -571,6 +615,7 @@ def drift_end_rows(dg, qpad: torch.Tensor, nbs: torch.Tensor, costs,
 
 
 drift_end_rows.launches = 0
+drift_end_rows.rows_launches = 0
 
 
 def _drift_scores(rows_fn, dg, qpad, lengths, costs, prep, n_min, max_run):
@@ -622,6 +667,7 @@ def ef_best_rows(dg, qshift: torch.Tensor, costs, prep: dict,
 
 
 ef_best_rows.launches = 0
+ef_best_rows.rows_launches = 0
 
 
 def _ef_scores(rows_fn, dg, qshift, lengths, costs, prep, free_start, end_ok,
@@ -678,6 +724,7 @@ def drift_ef_best_rows(dg, qpad: torch.Tensor, nbs: torch.Tensor,
 
 
 drift_ef_best_rows.launches = 0
+drift_ef_best_rows.rows_launches = 0
 
 
 def _drift_ef_scores(rows_fn, dg, qpad, lengths, costs, prep, n_min, end_ok,
@@ -730,6 +777,7 @@ def banded_end_rows_2p(dg, qshift: torch.Tensor, costs, prep: dict,
 
 
 banded_end_rows_2p.launches = 0
+banded_end_rows_2p.rows_launches = 0
 
 
 def banded_scores_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
@@ -772,6 +820,7 @@ def drift_end_rows_2p(dg, qpad: torch.Tensor, nbs: torch.Tensor, costs,
 
 
 drift_end_rows_2p.launches = 0
+drift_end_rows_2p.rows_launches = 0
 
 
 def drift_scores_2p(dg, qpad: torch.Tensor, lengths: torch.Tensor, costs,

@@ -101,7 +101,8 @@ def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["lib"])
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pi, pll = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
-    lib.poasta_banded_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pll]
+    lib.poasta_banded_plan.argtypes = [i, i, i, i, i, pi, pi, pi, pll, pi, pi,
+                                      pi]
     lib.poasta_banded_plan.restype = i
     lib.poasta_banded_fill.argtypes = (
         [i] + [p] * 13 + [i] * 16 + [p, p, ll, p])

@@ -103,9 +103,9 @@ def test_banded_kernel_matches_plain(card, ub, capped):
 
 
 def test_banded_kernel_rings_in_global_memory(card):
-    """A 6 kb full-width band passes the 227 KB of shared memory with its
-    scratch rows and rings together: the rings move to global memory."""
-    g, reads = _case(2, 6000, 8, div=0.02)
+    """A 7 kb full-width band's rings pass the 227 KB of shared memory
+    (W 4 x 2 rings x 7,424 lanes): they move to global memory."""
+    g, reads = _case(2, 7000, 8, div=0.02)
     flat = g.flatten()
     dg = DeviceGraph.build(flat, device=card)
     q, lengths = pack_queries(reads, device=card)
@@ -958,3 +958,194 @@ def test_banded_kernel_full_width_40k_lanes_in_global_memory(card,
     assert torch.equal(got, cf.banded_end_rows_plain(dg, q, COSTS, prep, 0))
     score = cf.banded_scores(dg, q, lengths, COSTS, prep)
     assert int(score[0]) == NativeAligner(g).align_banded(read, COSTS)[0]
+
+
+# ---- the banded template's bodies: widths, caps, placements ------------------
+# Every case is held torch.equal to the plain version.  The register body
+# gives each thread K lanes; widths of an odd number of 8 K-lane groups
+# (4,224 at K 8, 6,272 at K 16) leave the last warp part past the row.
+
+
+def _full_width(card, seed, width, two_piece=False, n_reads=4, q_lanes=None):
+    """A bubble graph (P = 3 at each join, invalid predecessor slots
+    elsewhere) and reads under one full-width window of ``width`` lanes,
+    the query padded to ``q_lanes`` (default ``width``)."""
+    g, reads = _bubble_case(seed, 600, 2, 50, n_reads, div=0.03)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    assert int(dg.pred_slots.shape[1]) >= 3
+    assert not bool(dg.pred_valid_flat.view(-1, dg.pred_slots.shape[1])
+                    [: flat.n_nodes].bool().all())
+    q, lengths = pack_queries(reads, device=card)
+    Lq = q_lanes or width
+    q = torch.nn.functional.pad(q, (0, Lq - int(q.shape[1]))).contiguous()
+    costs = COSTS_2P if two_piece else COSTS
+    prep = cf.prepare_banded(dg, costs, np.zeros(flat.n_nodes, np.int32),
+                             width, Lq)
+    return flat, dg, q, lengths, costs, prep
+
+
+def _caps(plan, width):
+    K = plan["lanes_per_thread"]
+    return [1, 2, 32 * K, width, width + 1]
+
+
+@pytest.mark.parametrize("width", [384, 1152, 4224, 6272])
+@pytest.mark.parametrize("two_piece", [False, True], ids=["B1", "B16"])
+def test_register_body_matches_plain(card, width, two_piece):
+    """B1 and B16 at caps 1, 2, one warp's span (32 K lanes), the width and
+    past it."""
+    flat, dg, q, _, costs, prep = _full_width(card, 50 + width, width,
+                                              two_piece)
+    variant = cf.VARIANT_GLOBAL_2P if two_piece else cf.VARIANT_GLOBAL
+    plan = cf.variant_plan(variant, dg.window, width, prep["margin"], width)
+    assert plan["body"] == "registers" and plan["barriers_per_rank"] == 2
+    kernel, plain = ((cf.banded_end_rows_2p, cf.banded_end_rows_2p_plain)
+                     if two_piece else
+                     (cf.banded_end_rows, cf.banded_end_rows_plain))
+    before = kernel.rows_launches
+    for cap in _caps(plan, width):
+        got = kernel(dg, q, costs, prep, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(dg, q, costs, prep, cap)), (plan, cap)
+    assert kernel.rows_launches == before
+
+
+@pytest.mark.parametrize("span", [SEMI_GLOBAL, BOUNDED],
+                         ids=["semi-global", "bounded"])
+@pytest.mark.parametrize("width", [384, 4224])
+def test_register_body_ends_free_matches_plain(card, span, width):
+    """B5 (ENDS 1, the positional best row), free graph begin or not."""
+    flat, dg, q, lengths, costs, prep = _full_width(card, 70 + width, width)
+    fs, end_ok, _ = ends_free_device_params(flat, span, lengths,
+                                            dg.n_nodes_padded)
+    plan = cf.variant_plan(cf.VARIANT_EF, dg.window, width, prep["margin"],
+                           width)
+    for cap in _caps(plan, width):
+        got = cf.ef_best_rows(dg, q, costs, prep, fs, end_ok, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cf.ef_best_rows_plain(dg, q, costs, prep, fs,
+                                                      end_ok, cap)), cap
+
+
+def test_register_body_global_placement(card):
+    """B5 with a 57,344-lane query: the best row and the suffix row pass
+    the 227 KB of shared memory, so the register body keeps only its warp
+    carries there and the rest in the block's global slab."""
+    width, Lq = 1152, 57344
+    flat, dg, q, lengths, costs, prep = _full_width(card, 90, width,
+                                                    q_lanes=Lq)
+    plan = cf.variant_plan(cf.VARIANT_EF, dg.window, width, prep["margin"],
+                           Lq)
+    assert plan["body"] == "registers" and plan["placement"] == "global"
+    fs, end_ok, _ = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                            dg.n_nodes_padded)
+    for cap in (0, 64):
+        got = cf.ef_best_rows(dg, q, costs, prep, fs, end_ok, cap)
+        assert torch.equal(got, cf.ef_best_rows_plain(dg, q, costs, prep, fs,
+                                                      end_ok, cap)), cap
+
+
+@pytest.mark.parametrize("two_piece", [False, True], ids=["B1", "B16"])
+def test_rows_body_matches_plain(card, two_piece):
+    """Past 16 x 672 lanes (B1) and 16 x 512 (B16) the plan takes the rows
+    body (12,416 lanes: chunks of 16 lanes, 800 threads, everything in
+    global memory)."""
+    width = 12416
+    flat, dg, q, _, costs, prep = _full_width(card, 110, width, two_piece,
+                                              n_reads=2)
+    variant = cf.VARIANT_GLOBAL_2P if two_piece else cf.VARIANT_GLOBAL
+    plan = cf.variant_plan(variant, dg.window, width, prep["margin"], width)
+    assert plan["body"] == "rows" and plan["barriers_per_rank"] == 5
+    kernel, plain = ((cf.banded_end_rows_2p, cf.banded_end_rows_2p_plain)
+                     if two_piece else
+                     (cf.banded_end_rows, cf.banded_end_rows_plain))
+    before = kernel.rows_launches
+    for cap in (1, 2, 512, 0):
+        got = kernel(dg, q, costs, prep, cap)
+        assert torch.equal(got, plain(dg, q, costs, prep, cap)), cap
+    assert kernel.rows_launches == before + 4
+
+
+@pytest.mark.parametrize("which", ["B3", "B6", "B17"])
+@pytest.mark.parametrize("capped", [False, True])
+def test_drift_bodies_wrap_the_ring(card, which, capped):
+    """Reads 2,840 lanes apart drift past the whole ring row (128 x nbs >=
+    TOT), so the rotation wraps and re-frames clear lanes across the wrap;
+    ENDS 2 keeps its best tile in registers."""
+    g, reads = _sv_case(120, glen=3000, n_reads=16)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    costs = COSTS_2P if which == "B17" else COSTS
+    lens = lengths.cpu().numpy()
+    n_min, n_max = int(lens.min()), int(lens.max())
+    S = tbd.drift_steps_for(n_min, n_max)
+    ub = 60
+    span = BOUNDED if which == "B6" else None
+    ws, width, sr = tbd.band_windows_drift(flat, n_min, n_max, costs, ub, S,
+                                           aln_type=span)
+    L = int(q.shape[1])
+    Lp = max(L, -(-(int(ws.max()) + width) // 128) * 128)
+    prep = cf.prepare_banded_drift(dg, costs, ws, width, sr, S, Lp)
+    qpad = torch.nn.functional.pad(q, (prep["mq"], Lp - L)).contiguous()
+    nbs = cf.drift_units(lengths, n_min)
+    assert 128 * int(nbs.max()) >= width + 2 * prep["margin"]
+    max_run = tbd.ins_run_cap(costs, ub, width) if capped else 0
+    if which == "B6":
+        _, end_ok, jlo = ends_free_device_params(flat, span, lengths,
+                                                 dg.n_nodes_padded)
+        li = lengths.to(torch.int32).contiguous()
+        jl = jlo.to(torch.int32).contiguous()
+        got = cf.drift_ef_best_rows(dg, qpad, nbs, li, jl, costs, prep,
+                                    end_ok, max_run)
+        ref = cf.drift_ef_best_rows_plain(dg, qpad, nbs, li, jl, costs, prep,
+                                          end_ok, max_run)
+    elif which == "B17":
+        got = cf.drift_end_rows_2p(dg, qpad, nbs, costs, prep, max_run)
+        ref = cf.drift_end_rows_2p_plain(dg, qpad, nbs, costs, prep, max_run)
+    else:
+        got = cf.drift_end_rows(dg, qpad, nbs, costs, prep, max_run)
+        ref = cf.drift_end_rows_plain(dg, qpad, nbs, costs, prep, max_run)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("which", ["B16", "B17"])
+def test_split_placement_matches_plain(card, which):
+    """Two-piece rings that do not fit whole keep M and D1 in shared memory
+    and D2 in the block's global slab: B16 at a 5,120-lane full-width tier,
+    B17 on drifting windows of 4,480 lanes whose re-frames clear D2 rows in
+    the slab."""
+    if which == "B16":
+        flat, dg, q, _, costs, prep = _full_width(card, 130, 5120, True)
+        plan = cf.variant_plan(cf.VARIANT_GLOBAL_2P, dg.window, 5120,
+                               prep["margin"], 5120)
+        assert plan["placement"] == "rings-split", plan
+        for cap in (1, 2048, 0):
+            got = cf.banded_end_rows_2p(dg, q, costs, prep, cap)
+            assert torch.equal(got, cf.banded_end_rows_2p_plain(
+                dg, q, costs, prep, cap)), cap
+        return
+    g, reads = _sv_case(120, glen=8000, n_reads=4)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    lens = lengths.cpu().numpy()
+    n_min, n_max = int(lens.min()), int(lens.max())
+    S = tbd.drift_steps_for(n_min, n_max)
+    ws, width, sr = tbd.band_windows_drift(flat, n_min, n_max, COSTS_2P,
+                                           2000, S)
+    L = int(q.shape[1])
+    Lp = max(L, -(-(int(ws.max()) + width) // 128) * 128)
+    prep = cf.prepare_banded_drift(dg, COSTS_2P, ws, width, sr, S, Lp)
+    qpad = torch.nn.functional.pad(q, (prep["mq"], Lp - L)).contiguous()
+    plan = cf.variant_plan(cf.VARIANT_DRIFT_2P, dg.window, width,
+                           prep["margin"], Lp)
+    assert plan["placement"] == "rings-split", plan
+    nbs = cf.drift_units(lengths, n_min)
+    assert int(nbs.max()) > 0
+    for cap in (0, 256):
+        got = cf.drift_end_rows_2p(dg, qpad, nbs, COSTS_2P, prep, cap)
+        assert torch.equal(got, cf.drift_end_rows_2p_plain(
+            dg, qpad, nbs, COSTS_2P, prep, cap)), cap
