@@ -27,12 +27,23 @@ events, median of 5 after a warm-up:
   (1024 reads, Wb 4480);
 * B2 ``fill_end_rows`` on 134 mixed-divergence reads at L 5120;
 * B4 ``bounded_best_rows`` on 256 fragments at L 4096, uncapped;
+* B2f ``free_fill_rows`` and B12f ``free_fill_rows_2p`` with both free
+  flags on ``chip_smoke.py`` 10c's inputs (64 pieces of 1,000 bases cut
+  from the uniform reads, L 1024);
+* B12 ``fill_end_rows_2p`` at the inputs the mixed traffic's two-piece
+  tail gives it through ``BandedScorer.scores(max_retries=1)``
+  (``chip_smoke.py`` 9b's: the reads its B16 tier did not verify, L 5120);
+* B13 ``bounded_best_rows_2p`` at the widest inputs ``score_batch`` gives it
+  on the mixed-length SV traffic under the bench's bounded span
+  (``chip_smoke.py`` 10a's: 1024 reads, L 5120, 5,002 ranks, cap 2048);
 * B5 ``ef_best_rows`` at the recorded inputs (1024 fragments, Wb 4096);
 * B7 ``bounded_end_rows`` on the bench's pangenome configuration under the
   semi-global span: 64 reads of ~5 kb, 50,002 ranks, cap 4096, as the
   first batch of ``lasagna align -m semi-global`` gives it;
 * B9's size, ``bounded_best_rows`` (B4) on the same inputs, uncapped, as
   ``chip_smoke.py`` phase 11b runs it;
+* B14 ``bounded_end_rows_2p`` on the same 64 reads under the two-piece
+  costs, cap 2048, as ``chip_smoke.py`` 10b's ``align_batch`` gives it;
 * B11's size, ``banded_end_rows`` (B1) on phase 11a's 40,002-rank graph
   and 64 reads of ~40 kb: at the inputs ``score_batch`` gives it (its
   second call), and at ``scripts/bigbanded_40k.py``'s fixed windows of ub
@@ -46,10 +57,10 @@ events, median of 5 after a warm-up:
   end, at drifting windows of ub 3,000 (Wb 6,528, past 6,144).
 
 Each line carries a checksum of the kernel's output, so two trees can be
-seen to compute the same rows, the banded rows their launch plan, and the
-card's name and power limit.  The build's register counts are printed
-first.  Needs one card; imports no JAX.  Only names that the unpacked
-parent's ``chip_smoke.py`` also has are imported from it.
+seen to compute the same rows, the rows of both templates their launch
+plan, and the card's name and power limit.  The build's register counts
+are printed first.  Needs one card; imports no JAX.  Only names that the
+unpacked parent's ``chip_smoke.py`` also has are imported from it.
 """
 
 import os
@@ -80,6 +91,8 @@ def main() -> int:
         BB_READS,
         BB_SEED,
         BB_UB,
+        FREE_READ_LEN,
+        FREE_SEED,
         N_READS,
         PAN_BATCH,
         _mutate,
@@ -128,6 +141,18 @@ def main() -> int:
             return fn(*args, **kwargs)
         return rec
 
+    widest = {}
+
+    def keep_widest(name, fn):
+        # the widest batch a launcher was given (the last such call)
+        def rec(*args, **kwargs):
+            B = int(args[1].shape[0])
+            if B >= widest.get(name, 0):
+                widest[name] = B
+                captured[name] = (args, kwargs)
+            return fn(*args, **kwargs)
+        return rec
+
     semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
     frags = fragment_reads(seqs, N_READS, 2000, 4000)
     with mock.patch.object(banded_mod, "banded_scores",
@@ -170,8 +195,24 @@ def main() -> int:
            f" plan {plan(cf.VARIANT_EF, dg, prep, q)}",
            lambda: cf.ef_best_rows(dg, q, c, prep, fs, end_ok, mr))
 
-    # the drifting-window and two-piece rows of the banded template
     costs2p = GapAffine2Piece(*COSTS_2P)
+    rng = random.Random(FREE_SEED)
+    pieces = []
+    for r in reads[:64]:
+        a = rng.randrange(0, len(r) - FREE_READ_LEN)
+        pieces.append(r[a:a + FREE_READ_LEN])
+    u_dg = DeviceGraph.build(graph.flatten(), device=dev)
+    qf, _ = pack_queries(pieces, device=dev)
+    Lf = int(qf.shape[1])
+    report("B2f", f"{int(qf.shape[0])} reads, L {Lf}, free_start and "
+           f"free_end, plan {cf.bounded_plan(u_dg.window, Lf)}",
+           lambda: cf.free_fill_rows(u_dg, qf, costs, True, True))
+    plan2p = cf.bounded_plan(u_dg.window, Lf, two_piece=True)
+    report("B12f", f"{int(qf.shape[0])} reads, L {Lf}, free_start and "
+           f"free_end, plan {plan2p}",
+           lambda: cf.free_fill_rows_2p(u_dg, qf, costs2p, True, True))
+
+    # the drifting-window and two-piece rows of the banded template
     bench_span = EndsFree(UNBOUNDED, included(50), included(0), included(50))
     gsv, sv_reads = sv_workload(costs)
     mixed = mixed_reads(seqs[0])
@@ -186,13 +227,20 @@ def main() -> int:
             m = BatchMapper(gsv, c, device=dev, aln_type=span)
             m.score_batch(sv_reads)  # converges the ub hint
             m.score_batch(sv_reads)
+    with mock.patch.object(cf, "_launch_bounded_2p",
+                           keep_widest("B13", cf._launch_bounded_2p)):
+        m = BatchMapper(gsv, costs2p, device=dev, aln_type=bench_span)
+        m.score_batch(sv_reads)  # converges the ub hints
+        m.score_batch(sv_reads)
     with mock.patch.object(banded_mod, "banded_scores_2p",
                            keep("B16 uniform", cf.banded_scores_2p)):
         m = BatchMapper(graph, costs2p, device=dev)
         m.score_batch(reads)
         m.score_batch(reads)
     with mock.patch.object(banded_mod, "banded_scores_2p",
-                           keep("B16 mixed", cf.banded_scores_2p)):
+                           keep("B16 mixed", cf.banded_scores_2p)), \
+            mock.patch.object(cf, "_launch_fill_2p",
+                              keep("B12", cf._launch_fill_2p)):
         BatchMapper(graph, costs2p, device=dev).scorer.scores(
             qm, lm, max_retries=1)
 
@@ -225,6 +273,17 @@ def main() -> int:
            f"{prep['margin']}, S {prep['S']}, max_run {mr}, plan "
            f"{plan(cf.VARIANT_DRIFT_2P, dg, prep, qpad)}",
            lambda: cf.drift_end_rows_2p(dg, qpad, nbs, c, prep, mr))
+    (dg, q, c), _ = captured["B12"]
+    L = int(q.shape[1])
+    report("B12", f"{int(q.shape[0])} reads (the mixed two-piece tail), L {L},"
+           f" plan {cf.fill_plan(dg.window, L, two_piece=True)}",
+           lambda: cf.fill_end_rows_2p(dg, q, c))
+    (dg, q, c, fs, end_ok, mr), _ = captured["B13"]
+    L = int(q.shape[1])
+    report("B13", f"{int(q.shape[0])} reads, L {L}, {dg.n_nodes} ranks, "
+           f"free_start {fs}, max_run {mr}, {int(end_ok.sum())} permitted "
+           f"ranks, plan {cf.bounded_plan(dg.window, L, two_piece=True)}",
+           lambda: cf.bounded_best_rows_2p(dg, q, c, fs, end_ok, mr))
 
     pan_graph, pan_reads = pangenome_workload()
     flat = pan_graph.flatten()
@@ -238,6 +297,14 @@ def main() -> int:
     report("B9 (B4)", f"{int(q.shape[0])} reads, L {int(q.shape[1])}, "
            f"{dg.n_nodes} ranks, free_start {fs}, uncapped",
            lambda: cf.bounded_best_rows(dg, q, costs, fs, end_ok, 0))
+    fs2, end_ok2, _ = ends_free_device_params(flat, semi, lengths,
+                                              dg.n_nodes_padded, True)
+    L = int(q.shape[1])
+    report("B14", f"{int(q.shape[0])} reads, L {L}, {dg.n_nodes} ranks, "
+           f"free_start {fs2}, max_run 2048, two-piece, plan "
+           f"{cf.bounded_plan(dg.window, L, ends=True, two_piece=True)}",
+           lambda: cf.bounded_end_rows_2p(dg, q, costs2p, fs2, end_ok2,
+                                          2048)[0])
 
     rng = random.Random(BB_SEED)
     graph, base = backbone_graph(rng, BB_LEN, BB_EDGE_EVERY)

@@ -21,7 +21,9 @@ batch through the full fill and one seeded warm-up), then the CLI with
 stages (k-mer hits, cluster proposals, the corridor fill, the
 certificate), the anchored trace and ``align_anchored``.  Then two-piece
 costs (``chip_smoke.py``'s phase 9, ``GapAffine2Piece(4, 2, 8, 1, 24)``):
-one uniform and one mixed-length ``score_batch`` batch, and the port's
+one uniform and one mixed-length ``score_batch`` batch, phase 10a's
+mixed-length batch under the bench's bounded span and 10b's pangenome
+``align_batch`` of 64 reads under the semi-global span, and the port's
 ``poasta align --engine banded --device-assist on`` on phase 9e's 16
 sequences of 10 kb, with the host time of the native fill, the fusion and
 the background scoring.  Needs one card; imports no JAX.
@@ -262,7 +264,10 @@ def profile_pangenome(dev, costs, semi, card):
 
 
 def profile_two_piece(dev, graph, reads, gsv, sv_reads, card):
-    """Two-piece costs: one uniform and one mixed-length ``score_batch``,
+    """Two-piece costs: one uniform and one mixed-length ``score_batch``;
+    under ends-free spans (``chip_smoke.py`` 10a, 10b) one mixed-length
+    ``score_batch`` under the bench's bounded span and one ``align_batch``
+    of 64 pangenome reads under the semi-global span (after a warm-up);
     then the MSA CLI with the device assist, its host wall by stage."""
     import contextlib
     import io
@@ -270,8 +275,8 @@ def profile_two_piece(dev, graph, reads, gsv, sv_reads, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import COSTS_2P, msa_fasta
-    from poasta_tpu_torch import BatchMapper
+    from chip_smoke import COSTS_2P, PAN_BATCH, msa_fasta, pangenome_workload
+    from poasta_tpu_torch import UNBOUNDED, BatchMapper, EndsFree, included
     from poasta_tpu_torch.aligner import GapAffine2Piece
     from poasta_tpu_torch.aligner import fusion_assist as fa
     from poasta_tpu_torch.cli.poasta import main as poasta_main
@@ -283,6 +288,26 @@ def profile_two_piece(dev, graph, reads, gsv, sv_reads, card):
                     BatchMapper(graph, costs, device=dev), reads, 1, card)
     profile_batches("mixed_len two-piece",
                     BatchMapper(gsv, costs, device=dev), sv_reads, 1, card)
+    bench_span = EndsFree(UNBOUNDED, included(50), included(0), included(50))
+    profile_batches("mixed_len bounded span two-piece (10a)",
+                    BatchMapper(gsv, costs, device=dev, aln_type=bench_span),
+                    sv_reads, 1, card)
+    pan_graph, pan_reads = pangenome_workload()
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    mapper = BatchMapper(pan_graph, costs, device=dev, aln_type=semi)
+    batch = pan_reads[:PAN_BATCH]
+    mapper.align_batch(batch)  # warm-up: learns the ub hint
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.align_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(f"pangenome two-piece align_batch (10b), {PAN_BATCH} reads",
+            prof, wall, f"{PAN_BATCH / wall:.2f} reads/s, anchored path "
+            f"{mapper.last_ends_free_stats}", card)
+    del mapper
     tmp = tempfile.mkdtemp(prefix="poasta_profile_msa_")
     fasta = msa_fasta(tmp)
     argv = ["align", "--engine", "banded", "--device-assist", "on", "-n",

@@ -176,13 +176,17 @@ recurrences, so ``library_ms`` is null throughout.  Each row of the banded
 template (B1, B3, B5, B6, B16, B17 and B11) also gives, at its shape, the
 body the plan chose, its threads, lanes a thread, barriers a rank (and at
 a drift re-frame) and shared memory (``banded_fields``), and counts the
-launches of its register body.  A main path's launches that the plan
-sends to the rows body (``banded_rows_kernel``: bands past the register
-body's 6,144-10,752 lanes) have rows of their own: B16's one-read
-launches of 9e, and B1's of 6e where its tier passes 10,752 lanes, each
-held against its plain version at the last such call.  Every rows-body
-launch of the run is counted, and the script fails if one came from a
-path with no such row.
+launches of its register body.  Each row of the full-fill template (B2,
+B4, B7, B9, B12, B13, B14, B2f, B12f) gives the same fields at its shape
+(``fill_fields``), and ``redesigned`` where the plan chose the register
+body.  A main path's launches that the plan sends to a rows body
+(``banded_rows_kernel``: bands past the register body's 6,144-10,752
+lanes; ``full_fill_rows_kernel``: rows past 8,192, 6,144 for B14) have
+rows of their own: B16's one-read launches of 9e, and B1's of 6e where
+its tier passes 10,752 lanes, each held against its plain version at the
+last such call.
+Every rows-body launch of the run, of either template, is counted, and
+the script fails if one came from a path with no such row.
 
 Any failure raises.  The last line is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -432,19 +436,34 @@ def fill_bound(dg, B, lanes, q_lanes, out_lanes, tilted,
     return _bound(4 * (B * q_lanes + table_ints + B * out_lanes), ops)
 
 
+# A plan's fields in the kernels line, for a row of either template.
+PLAN_FIELDS = ("body", "threads", "lanes_per_thread", "barriers_per_rank",
+               "smem_bytes", "placement")
+
+
 def banded_fields(plan):
     """The kernels line's fields of a row of the banded template
     (csrc/banded_kernel.cu): its body, block shape, barriers a rank (a
     drift re-frame's apart) and shared memory at the row's shape."""
-    fields = {k: plan[k] for k in ("body", "threads", "lanes_per_thread",
-                                   "barriers_per_rank", "smem_bytes",
-                                   "placement")}
+    fields = {k: plan[k] for k in PLAN_FIELDS}
     if "barriers_at_reframe" in plan:
         fields["barriers_at_reframe"] = plan["barriers_at_reframe"]
     fields["redesigned"] = (
         "for Hopper: lanes in registers, van Herk scan"
         if plan["body"] == "registers"
         else "for Hopper: van Herk scan over thread chunks, int4 passes")
+    return fields
+
+
+def fill_fields(plan):
+    """The kernels line's fields of a row of the full-fill template
+    (csrc/fill_kernel.cu), as banded_fields gives them for the banded
+    rows."""
+    fields = {k: plan[k] for k in PLAN_FIELDS}
+    fields["redesigned"] = (
+        "for Hopper: lanes in registers, van Herk scan"
+        if plan["body"] == "registers"
+        else "no: the first body, block_prefix_min")
     return fields
 
 
@@ -466,21 +485,39 @@ ROWS_SEEN, ROWS_MAIN, ROWS_OWN = {}, {}, {}
 ROWS_RESULTS = {}
 ROWS_KERNELS = {"B1": "banded_rows_kernel<global>",
                 "B16": "banded_rows_kernel<two-piece>"}
+# The wrappers of the full-fill template, by row: their rows-body launches
+# (full_fill_rows_kernel: rows past 8,192 lanes, 6,144 for B14) are
+# audited the same way.
+FILL_WRAPPERS = {"B2": "fill_end_rows", "B4": "bounded_best_rows",
+                 "B7": "bounded_end_rows", "B12": "fill_end_rows_2p",
+                 "B13": "bounded_best_rows_2p", "B14": "bounded_end_rows_2p",
+                 "B2f": "free_fill_rows", "B12f": "free_fill_rows_2p"}
 
 
 def _count_rows_launches(cf):
-    """A patch of ``cf._launch_variant`` that adds each rows-body launch to
-    ROWS_SEEN."""
-    real = cf._launch_variant
-    names = {getattr(cf, w): b for b, w in BANDED_WRAPPERS.items()}
+    """Patches of ``cf._launch_variant`` and ``cf._launch_full_fill`` that
+    add each rows-body launch to ROWS_SEEN."""
+    real_variant, real_fill = cf._launch_variant, cf._launch_full_fill
+    names = {getattr(cf, w): b for b, w in {**BANDED_WRAPPERS,
+                                            **FILL_WRAPPERS}.items()}
 
-    def launch(variant, wrapper, *args, **kwargs):
-        before = wrapper.rows_launches
-        out = real(variant, wrapper, *args, **kwargs)
+    def seen(wrapper, before):
         b = names[wrapper]
         ROWS_SEEN[b] = ROWS_SEEN.get(b, 0) + wrapper.rows_launches - before
+
+    def variant_launch(variant, wrapper, *args, **kwargs):
+        before = wrapper.rows_launches
+        out = real_variant(variant, wrapper, *args, **kwargs)
+        seen(wrapper, before)
         return out
-    return mock.patch.object(cf, "_launch_variant", launch)
+
+    def fill_launch(wrapper, *args, **kwargs):
+        before = wrapper.rows_launches
+        out = real_fill(wrapper, *args, **kwargs)
+        seen(wrapper, before)
+        return out
+    return [mock.patch.object(cf, "_launch_variant", variant_launch),
+            mock.patch.object(cf, "_launch_full_fill", fill_launch)]
 
 
 @contextlib.contextmanager
@@ -608,7 +645,8 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
     build.load()
     rows_audit = _count_rows_launches(cf)
-    rows_audit.start()
+    for patch in rows_audit:
+        patch.start()
 
     # ---- 3. kernels against their plain versions on the card ------------
     graph, seqs, reads = uniform_workload(costs)
@@ -797,15 +835,15 @@ def main() -> int:
         tilted=True, table_cols=1 + int(g_dg.pred_slots.shape[1])),
         max_run=max_run, **banded_fields(plan))
     g_dg, q, c = captured[("mixed", "B2")]
+    plan = cf.fill_plan(g_dg.window, int(q.shape[1]))
     print(f"[kernels] B2 main path (mixed tail): {int(q.shape[0])} reads, L "
-          f"{int(q.shape[1])}, plan "
-          f"{cf.fill_plan(g_dg.window, int(q.shape[1]))}", flush=True)
+          f"{int(q.shape[1])}, plan {plan}", flush=True)
     results["B2"] = _compare(
         "B2 main path", lambda: cf.fill_end_rows(g_dg, q, c),
         lambda: cf.fill_end_rows_plain(g_dg, q, c), card, reps=3)
     results["B2"].update(fill_bound(
         g_dg, int(q.shape[0]), int(q.shape[1]), int(q.shape[1]),
-        int(q.shape[1]), tilted=False))
+        int(q.shape[1]), tilted=False), **fill_fields(plan))
 
     # ---- 5. forced whole-batch full-fill fallback -----------------------
     q64, l64 = q_all[:64].contiguous(), l_all[:64].contiguous()
@@ -943,7 +981,8 @@ def main() -> int:
                         "replaces": replaces[name],
                         "launches": sum(calls.values()),
                         "launches_by_call": calls, **res})
-    rows_audit.stop()
+    for patch in rows_audit:
+        patch.stop()
     _check_rows_launches()
     print(f"[kernels] rows-body launches: {ROWS_SEEN}, on main paths "
           f"{ROWS_MAIN}, their checks {ROWS_OWN}", flush=True)
@@ -1603,9 +1642,10 @@ def ends_free_phases(card, dev, costs, graph, seqs):
     _, (dg, q, ln, c, fs, end_ok, jlo), kw = captured["B4"]
     mr = kw.get("max_run", 0)
     L = int(q.shape[1])
+    plan = cf.bounded_plan(dg.window, L, max_run=mr)
     print(f"[kernels] B4 main path (the fragments' tail): {int(q.shape[0])} "
-          f"reads, L {L}, free_start {fs}, max_run {mr}, plan "
-          f"{cf.bounded_plan(dg.window, L)}", flush=True)
+          f"reads, L {L}, free_start {fs}, max_run {mr}, plan {plan}",
+          flush=True)
     results["B4"] = _compare(
         "B4 main path",
         lambda: cf.bounded_best_rows(dg, q, c, fs, end_ok, mr),
@@ -1614,7 +1654,7 @@ def ends_free_phases(card, dev, costs, graph, seqs):
     results["B4"].update(fill_bound(
         dg, int(q.shape[0]), L, L, L, tilted=False,
         per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
-        table_cols=1))
+        table_cols=1), **fill_fields(plan))
     _phase_done("7d B3-B6 at the main paths' shapes")
     return results, launches
 
@@ -1837,9 +1877,10 @@ def pangenome_phases(card, dev, costs):
     _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B7"]
     b7_cap = max_run
     L = int(q.shape[1])
+    plan = cf.bounded_plan(g_dg.window, L, ends=True, max_run=max_run)
     print(f"[kernels] B7 main path: {int(q.shape[0])} reads, L {L}, "
           f"{g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, plan "
-          f"{cf.bounded_plan(g_dg.window, L, ends=True)}", flush=True)
+          f"{plan}", flush=True)
     results["B7"] = _compare(
         "B7 main path",
         lambda: cf.bounded_end_rows(g_dg, q, c, fs, end_ok, max_run),
@@ -1850,7 +1891,7 @@ def pangenome_phases(card, dev, costs):
     results["B7"].update(fill_bound(
         g_dg, int(q.shape[0]), L, L, 2 * L, tilted=False,
         per_rank=RECURRENCE_OPS + ENDS_OPS * int(end_ok.sum()) / g_dg.n_nodes,
-        table_cols=1))
+        table_cols=1), **fill_fields(plan))
 
     _, args, _ = captured["B8"]
     (g_dg, q, wst, ln, jlo, r_begin, r_end, c, fs, end_ok, Wb, max_run) = args
@@ -2298,15 +2339,15 @@ def two_piece_phases(card, dev, graph, reads, base):
 
     _, (dg, q, ln, c), _ = captured["B12"]
     L = int(q.shape[1])
+    plan = cf.fill_plan(dg.window, L, two_piece=True)
     print(f"[kernels] B12 main path (the mixed tail): {int(q.shape[0])} reads,"
-          f" L {L}, plan {cf.fill_plan(dg.window, L, two_piece=True)}",
-          flush=True)
+          f" L {L}, plan {plan}", flush=True)
     results["B12"] = _compare(
         "B12 main path", lambda: cf.fill_end_rows_2p(dg, q, c),
         lambda: cf.fill_end_rows_2p_plain(dg, q, c), card, reps=3)
     results["B12"].update(fill_bound(
         dg, int(q.shape[0]), L, L, L, tilted=False, per_pred=PRED_OPS_2P,
-        per_rank=RECURRENCE_OPS_2P))
+        per_rank=RECURRENCE_OPS_2P), **fill_fields(plan))
     _phase_done("9f B12, B16, B17 at the main paths' shapes")
     return results, launches
 
@@ -2500,20 +2541,21 @@ def ends_free_two_piece_phases(card, dev, uniform_graph, uniform_reads,
         mask = cf.free_end_mask(u_dg, True)
         L = int(qf.shape[1])
         two = c.is_two_piece
+        plan = cf.bounded_plan(u_dg.window, L, two_piece=two)
         results[name].update(fill_bound(
             u_dg, int(qf.shape[0]), L, L, L, tilted=False,
             per_pred=PRED_OPS_2P if two else PRED_OPS,
             per_rank=(RECURRENCE_OPS_2P if two else RECURRENCE_OPS)
-            + int(mask.sum()) / u_dg.n_nodes, table_cols=1))
-        print(f"[kernels] {name}: plan "
-              f"{cf.bounded_plan(u_dg.window, L, two_piece=two)}", flush=True)
+            + int(mask.sum()) / u_dg.n_nodes, table_cols=1),
+            **fill_fields(plan))
+        print(f"[kernels] {name}: plan {plan}", flush=True)
 
     _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B13"]
     L = int(q.shape[1])
+    plan = cf.bounded_plan(g_dg.window, L, two_piece=True, max_run=max_run)
     print(f"[kernels] B13 main path (10a): {int(q.shape[0])} reads, L {L}, "
           f"{g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, "
-          f"{int(end_ok.sum())} permitted ranks, plan "
-          f"{cf.bounded_plan(g_dg.window, L, two_piece=True)}", flush=True)
+          f"{int(end_ok.sum())} permitted ranks, plan {plan}", flush=True)
     results["B13"] = _compare(
         "B13 main path",
         lambda: cf.bounded_best_rows_2p(g_dg, q, c, fs, end_ok, max_run),
@@ -2522,7 +2564,7 @@ def ends_free_two_piece_phases(card, dev, uniform_graph, uniform_reads,
     results["B13"].update(fill_bound(
         g_dg, int(q.shape[0]), L, L, L, tilted=False, per_pred=PRED_OPS_2P,
         per_rank=RECURRENCE_OPS_2P + int(end_ok.sum()) / g_dg.n_nodes,
-        table_cols=1))
+        table_cols=1), **fill_fields(plan))
 
     _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B14"]
     L = int(q.shape[1])
@@ -2531,11 +2573,12 @@ def ends_free_two_piece_phases(card, dev, uniform_graph, uniform_reads,
     # the plain version walks 50k ranks at about a millisecond each whatever
     # the batch: the first 8 reads of the call
     q8 = q[:8].contiguous()
+    plan = cf.bounded_plan(g_dg.window, L, ends=True, two_piece=True,
+                           max_run=max_run)
     print(f"[kernels] B14 main path (10b): {int(q.shape[0])} reads in the "
           f"call ({full_ms:.3f} ms), compared and timed on its first 8; L {L},"
           f" {g_dg.n_nodes} ranks, free_start {fs}, max_run {max_run}, plan "
-          f"{cf.bounded_plan(g_dg.window, L, ends=True, two_piece=True)}",
-          flush=True)
+          f"{plan}", flush=True)
     results["B14"] = _compare(
         "B14 main path (first 8 reads)",
         lambda: cf.bounded_end_rows_2p(g_dg, q8, c, fs, end_ok, max_run),
@@ -2546,7 +2589,8 @@ def ends_free_two_piece_phases(card, dev, uniform_graph, uniform_reads,
         per_rank=RECURRENCE_OPS_2P
         + ENDS_OPS * int(end_ok.sum()) / g_dg.n_nodes, table_cols=1))
     results["B14"].update(reads_compared=8, whole_call_ms=full_ms,
-                          whole_call_reads=int(q.shape[0]))
+                          whole_call_reads=int(q.shape[0]),
+                          **fill_fields(plan))
     _phase_done("10c B2f, B12f; B13, B14 at the main paths' shapes")
     return results, launches
 
@@ -2756,7 +2800,7 @@ def big_phases(card, dev, costs, pan_reads, pan):
         "plain_ms_capped": cmp[pan["b7_cap"]]["plain_ms"],
         "ms_compared": cmp[0]["ms"], "reads_compared": BIG_PLAIN_READS,
         "cap_compared": pan["b7_cap"], "shape": [PAN_BATCH, L],
-        "placement": plan["placement"],
+        **fill_fields(plan),
         **fill_bound(dg, PAN_BATCH, L, L, L, tilted=False,
                      per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
                      table_cols=1)}

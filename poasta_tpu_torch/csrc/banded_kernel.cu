@@ -83,7 +83,9 @@
 // how many passes over the band it takes, the barriers between them and
 // the latency each exposes, not DRAM bandwidth or arithmetic.
 //
-// What the design does about it (the register body, banded_reg_kernel):
+// What the design does about it (the register body, banded_reg_kernel;
+// its gather, scan, DPX helpers and placement are reg_body.cuh's, shared
+// with fill_kernel.cu's register body):
 //   * one block per read, so the 1024 reads of a batch fill the card's 132
 //     SMs in waves with no cross-block traffic;
 //   * thread t owns K contiguous lanes [tK, tK + K), K in {4, 8, 16} the
@@ -137,6 +139,7 @@
 
 #include "common.cuh"
 #include "prefix_min.cuh"
+#include "reg_body.cuh"
 
 enum {
     VARIANT_GLOBAL = 1,
@@ -147,10 +150,8 @@ enum {
     VARIANT_DRIFT_2P = 17,
 };
 
-enum { BODY_REGISTERS = 0, BODY_ROWS = 1 };
-
 // Barriers a rank takes, a drift re-frame's one not counted.
-#define BANDED_REG_BARRIERS 2
+#define BANDED_REG_BARRIERS REG_BARRIERS
 #define BANDED_ROWS_BARRIERS 5
 // Threads a register-body block may have at K lanes a thread, so that its
 // registers (65,536 over the threads, rounded as ptxas rounds them to 4
@@ -170,9 +171,6 @@ __host__ __device__ constexpr int banded_reg_max_threads(bool drift, int ends,
            : (!drift && ends == 0 && !two_piece) ? 672
                                                  : 512;
 }
-// The warp carries of the window scan, at the front of shared memory.
-#define BANDED_CARRY_INTS 32
-
 struct BandedShape {
     int Lq, mq, log2S, n_nodes, end_rank, W, P, Wb, margin, o, e, ed, x, cap;
     int free_start;
@@ -189,10 +187,6 @@ static inline bool banded_two_piece(int variant) {
 
 static inline int banded_rings(int variant) {
     return banded_two_piece(variant) ? 3 : 2;
-}
-
-__host__ __device__ inline int round_up(int n, int m) {
-    return (n + m - 1) / m * m;
 }
 
 static inline bool banded_drift(int variant) {
@@ -233,58 +227,6 @@ static inline int banded_rows_chunk(int Wb) {
 
 // ---- the register body --------------------------------------------------
 
-__device__ __forceinline__ int add_min(int a, int b, int c) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 \
-    && __CUDACC_VER_MAJOR__ >= 12
-    return __viaddmin_s32(a, b, c);  // min(a + b, c), one DPX instruction
-#else
-    return min(a + b, c);
-#endif
-}
-
-__device__ __forceinline__ int min3(int a, int b, int c) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 \
-    && __CUDACC_VER_MAJOR__ >= 12
-    return __vimin3_s32(a, b, c);
-#else
-    return min(a, min(b, c));
-#endif
-}
-
-template <int K>
-__device__ __forceinline__ void ld_lanes(const int* p, int (&v)[K]) {
-    const int4* q = reinterpret_cast<const int4*>(p);
-#pragma unroll
-    for (int c = 0; c < K / 4; ++c) {
-        const int4 t = q[c];
-        v[4 * c] = t.x;
-        v[4 * c + 1] = t.y;
-        v[4 * c + 2] = t.z;
-        v[4 * c + 3] = t.w;
-    }
-}
-
-template <int K>
-__device__ __forceinline__ void min_lanes(const int* p, int (&v)[K]) {
-    const int4* q = reinterpret_cast<const int4*>(p);
-#pragma unroll
-    for (int c = 0; c < K / 4; ++c) {
-        const int4 t = q[c];
-        v[4 * c] = min(v[4 * c], t.x);
-        v[4 * c + 1] = min(v[4 * c + 1], t.y);
-        v[4 * c + 2] = min(v[4 * c + 2], t.z);
-        v[4 * c + 3] = min(v[4 * c + 3], t.w);
-    }
-}
-
-template <int K>
-__device__ __forceinline__ void st_lanes(int* p, const int (&v)[K]) {
-    int4* q = reinterpret_cast<int4*>(p);
-#pragma unroll
-    for (int c = 0; c < K / 4; ++c)
-        q[c] = make_int4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
-}
-
 // Index of logical lane `lane + i` of the ring row that starts at `row`.
 // Rows are circular over TOT lanes with drift (lane + i < 2*TOT); without,
 // row + lane is one loop-invariant 64-bit base, as a plain array has.
@@ -295,31 +237,6 @@ __device__ __forceinline__ long long ring_at(long long row, int lane, int i,
     int t = lane + i;
     if (t >= TOT) t -= TOT;
     return row + t;
-}
-
-// The register body's working set: the warp carries always in shared
-// memory; the side rows (ENDS == 1's best row, the scan's suffix row) and
-// the rings in shared memory or the block's global slab, by placement.
-// `d2` is the D2 ring (two-piece), after the D ring but with
-// PLACE_RINGS_SPLIT.
-__device__ __forceinline__ void banded_reg_workspace(
-    int mode, int* smem, int* gws, long long global_ints, int side_ints,
-    long long ring_ints, int** carry, int** side, int** rings, int** d2) {
-    int* g = gws + (long long)blockIdx.x * global_ints;
-    *carry = smem;
-    *d2 = nullptr;
-    if (mode == PLACE_SMEM || mode == PLACE_RINGS_SPLIT) {
-        *side = smem + BANDED_CARRY_INTS;
-        *rings = *side + side_ints;
-        if (mode == PLACE_RINGS_SPLIT) *d2 = g;
-    } else if (mode == PLACE_RINGS_GLOBAL) {
-        *side = smem + BANDED_CARRY_INTS;
-        *rings = g;
-    } else {
-        *side = g;
-        *rings = g + side_ints;
-    }
-    if (*d2 == nullptr) *d2 = *rings + 2 * ring_ints;
 }
 
 // The read-only pointers are kernel parameters of their own, const and
@@ -363,7 +280,7 @@ banded_reg_kernel(BANDED_PARAMS) {
     const bool windowed = w < Wb;  // else the window is the whole prefix
     const long long ring_ints = (long long)W * TOT;
     int *carry, *side, *mring, *d2ring;  // D2: two-piece only
-    banded_reg_workspace(a.mode, smem, gws, a.global_ints, a.side_ints,
+    reg_workspace(a.mode, smem, gws, a.global_ints, a.side_ints,
                          ring_ints, &carry, &side, &mring, &d2ring);
     int* dring = mring + ring_ints;
     int* best = side;                 // ENDS == 1: (Lq,) positional
@@ -443,11 +360,10 @@ banded_reg_kernel(BANDED_PARAMS) {
             {
                 const int d0 = min(max(w_r - pw[0], -margin), margin);
                 const long long row = (long long)ps[0] * TOT;
-                const long long off = ring_at<DRIFT>(row, lane0 + d0, base,
-                                                     TOT);
-                ld_lanes<K>(mring + off, pm);
-                ld_lanes<K>(dring + off, pd);
-                if (TWO_PIECE) ld_lanes<K>(d2ring + off, pd2);
+                gather_lanes<K, TWO_PIECE>(
+                    mring, dring, d2ring,
+                    ring_at<DRIFT>(row, lane0 + d0, base, TOT), true, pm, pd,
+                    pd2);
                 if (base > 0)
                     pm_left = mring[ring_at<DRIFT>(row, lane0 + d0, base - 1,
                                                    TOT)];
@@ -456,11 +372,10 @@ banded_reg_kernel(BANDED_PARAMS) {
                 if (pv[p] != 1) continue;
                 const int dp = min(max(w_r - pw[p], -margin), margin);
                 const long long row = (long long)ps[p] * TOT;
-                const long long off = ring_at<DRIFT>(row, lane0 + dp, base,
-                                                     TOT);
-                min_lanes<K>(mring + off, pm);
-                min_lanes<K>(dring + off, pd);
-                if (TWO_PIECE) min_lanes<K>(d2ring + off, pd2);
+                gather_lanes<K, TWO_PIECE>(
+                    mring, dring, d2ring,
+                    ring_at<DRIFT>(row, lane0 + dp, base, TOT), false, pm, pd,
+                    pd2);
                 if (base > 0)
                     pm_left = min(pm_left, mring[ring_at<DRIFT>(
                                                row, lane0 + dp, base - 1,
@@ -526,66 +441,9 @@ banded_reg_kernel(BANDED_PARAMS) {
         }
 
         if (!is_end) {  // uniform across the block
-            const WindowWarp ww = window_scan_warp(agg, K, w, carry);
-            if (active && windowed) {
-                // Suf as far as this warp knows it, right to left, stored
-                // a 4-lane chunk at a time
-                int run = ww.ex_suf;
-#pragma unroll
-                for (int c = K / 4 - 1; c >= 0; --c) {
-                    int sv[4];
-#pragma unroll
-                    for (int u = 3; u >= 0; --u) {
-                        const int k = 4 * c + u;
-                        run = min(run, s[k]);
-                        sv[u] = run;
-                        if (((base + k) & (w - 1)) == 0) run = POASTA_INF;
-                    }
-                    *reinterpret_cast<int4*>(suf + base + 4 * c) =
-                        make_int4(sv[0], sv[1], sv[2], sv[3]);
-                }
-            }
-            __syncthreads();  // barrier 1: carries and the suffix row
-            const int2 cb = window_scan_block(ww.ex_pre, K, w, carry);
-            if (active) {
-                // Suf(i - w) in 4-lane chunks: one int4 of the row when the
-                // chunk lies w >= K lanes right of its source, else lane by
-                // lane (w < K: the source may be this thread's own lanes)
-                const bool far = windowed && w >= K && base >= w;
-                const bool near = windowed && w < K;
-                int run = cb.x;  // Ex, left to right
-#pragma unroll
-                for (int c = 0; c < K / 4; ++c) {
-                    int sv[4] = {POASTA_INF, POASTA_INF, POASTA_INF,
-                                 POASTA_INF};
-                    if (far) {
-                        const int4 t = *reinterpret_cast<const int4*>(
-                            suf + base - w + 4 * c);
-                        sv[0] = min(t.x, cb.y);
-                        sv[1] = min(t.y, cb.y);
-                        sv[2] = min(t.z, cb.y);
-                        sv[3] = min(t.w, cb.y);
-                    } else if (near) {
-#pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                            const int i = base + 4 * c + u;
-                            if (i >= w) sv[u] = suf[i - w];
-                        }
-                    }
-#pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-                        const int k = 4 * c + u;
-                        const int i = base + k;
-                        if ((i & (w - 1)) == 0) run = POASTA_INF;
-                        const int win = min(run, sv[u]);
-                        run = min(run, s[k]);
-                        // untilted rows: back from the scan's tilt
-                        const int back = TWO_PIECE ? e * i : 0;
-                        pm[k] = min(s[k] + back,
-                                    add_min(win, o + back, POASTA_INF));  // M
-                    }
-                }
-            }
+            // untilted (two-piece) rows: scanned tilted, M tilted back
+            reg_insertion<K, TWO_PIECE>(s, agg, base, active, w, windowed, o,
+                                        e, carry, suf, pm);
         } else if (active && ENDS == 0) {
             st_lanes<K>(out + base, pm);  // the end row: min_pm
         }
@@ -651,7 +509,7 @@ __global__ void banded_rows_kernel(BANDED_PARAMS) {
     int* rows;
     int* mring;
     poasta_workspace(a.mode, smem, gws, a.global_ints,
-                     (long long)n_rows * Wb + best_ints + BANDED_CARRY_INTS,
+                     (long long)n_rows * Wb + best_ints + REG_CARRY_INTS,
                      &rows, &mring);
     const long long ring_ints = (long long)W * TOT;
     int* dring = mring + ring_ints;
@@ -864,43 +722,17 @@ static cudaError_t banded_plan(int variant, int W, int Wb, int margin, int Lq,
         cudaError_t err = poasta_plan(
             Wb,
             (long long)banded_rows_count(variant) * Wb
-                + banded_rows_best_lanes(variant, Wb, Lq) + BANDED_CARRY_INTS,
+                + banded_rows_best_lanes(variant, Wb, Lq) + REG_CARRY_INTS,
             ring_ints, &plan->p);
         plan->p.threads = round_up((Wb + plan->lanes - 1) / plan->lanes, 32);
         return err;
     }
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
     plan->body = BODY_REGISTERS;
     plan->lanes = K;
     plan->side_ints = (variant == VARIANT_EF ? round_up(Lq, 4) : 0) + Wb;
     plan->p.threads = round_up((Wb + K - 1) / K, 32);
-    const long long carry_b = 4LL * BANDED_CARRY_INTS;
-    const long long side_b = 4LL * plan->side_ints;
-    const long long ring1 = ring_ints / banded_rings(variant);
-    if (carry_b + side_b + 4 * ring_ints <= optin) {
-        plan->p.mode = PLACE_SMEM;
-        plan->p.smem_bytes = (int)(carry_b + side_b + 4 * ring_ints);
-        plan->p.global_ints = 0;
-    } else if (banded_two_piece(variant)
-               && carry_b + side_b + 8 * ring1 <= optin) {
-        plan->p.mode = PLACE_RINGS_SPLIT;
-        plan->p.smem_bytes = (int)(carry_b + side_b + 8 * ring1);
-        plan->p.global_ints = ring1;
-    } else if (carry_b + side_b <= optin) {
-        plan->p.mode = PLACE_RINGS_GLOBAL;
-        plan->p.smem_bytes = (int)(carry_b + side_b);
-        plan->p.global_ints = ring_ints;
-    } else {
-        plan->p.mode = PLACE_GLOBAL;
-        plan->p.smem_bytes = (int)carry_b;
-        plan->p.global_ints = plan->side_ints + ring_ints;
-    }
-    return cudaSuccess;
+    return reg_placement(plan->side_ints, ring_ints, banded_rings(variant),
+                         &plan->p);
 }
 
 extern "C" int poasta_banded_plan(int variant, int W, int Wb, int margin,

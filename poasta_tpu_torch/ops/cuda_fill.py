@@ -26,11 +26,14 @@ Port of ``poasta_tpu/ops/pallas_fill.py``.  TPU kernel -> wrapper here
   (banded_kernel.cu)
 
 ``banded_kernel.cu`` and ``fill_kernel.cu`` each hold one kernel template;
-the variants are its compile-time instantiations.  The banded template has
-two bodies, which :func:`variant_plan` chooses by band width: up to 10,752
-lanes (B1; 8,192 for B3, B5, B6 and B16, 6,144 for B17) each thread holds
-4, 8 or 16 lanes of a rank in registers, past that a rows body keeps
-scratch rows (``csrc/banded_kernel.cu``'s note).
+the variants are its compile-time instantiations.  Each template has two
+bodies, which its plan chooses by width (:func:`variant_plan`,
+:func:`bounded_plan`, :func:`fill_plan`): up to 10,752 lanes for B1 (8,192
+for B3, B5, B6 and B16, 6,144 for B17; 8,192 for the full fills, 6,144 for
+B14) each thread holds 4, 8 or 16 lanes of a rank in registers, past that
+a rows body keeps scratch rows (the notes of ``csrc/banded_kernel.cu`` and
+``csrc/fill_kernel.cu``).  The full fills take rows of a multiple of 128
+lanes, as ``pack_queries`` makes them.
 
 Two-piece costs (B12-B17) run the same recurrence with a third ring
 (D2) and, in the bodies that keep scratch rows, one more row.  Only
@@ -49,9 +52,9 @@ Each fill has:
 
 * a kernel wrapper: on a CUDA tensor it launches the kernel or raises; on
   a CPU tensor it runs the plain version.  ``<wrapper>.launches`` counts
-  kernel launches, and nothing else; a wrapper of the banded template also
-  counts in ``<wrapper>.rows_launches`` those of its launches that the
-  plan sent to the rows body (``banded_rows_kernel``);
+  kernel launches, and nothing else; it also counts in
+  ``<wrapper>.rows_launches`` those of its launches that the plan sent to
+  the rows body (``banded_rows_kernel``, ``full_fill_rows_kernel``);
 * a plain PyTorch version (``*_plain``): a loop over ranks on (B, lanes)
   int32 tensors with the kernel's tilt, truncation, INF and frame-roll
   rules, so the raw rows agree bit for bit;
@@ -148,11 +151,29 @@ def banded_plan(W: int, width: int, margin: int,
                         W, width, margin, 0)
 
 
+def _full_fill_plan(variant: int, W: int, L: int, cap: int) -> dict:
+    """Launch shape, body and placement of csrc/fill_kernel.cu's
+    ``variant`` on rows of L lanes at scan cap ``cap``: ``body`` is
+    "registers" (each thread holds ``lanes_per_thread`` lanes of the rank
+    in registers) or "rows" (rows past the register body's 8,192 lanes,
+    6,144 for B14: scratch rows, each thread striding over
+    ``lanes_per_thread`` lanes)."""
+    plan = _plan("poasta_fill_plan", variant, W, L)
+    lib = build.load()
+    body, lanes, barriers = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.check(lib, lib.poasta_fill_body(
+        variant, W, L, cap, ctypes.byref(body), ctypes.byref(lanes),
+        ctypes.byref(barriers)), "poasta_fill_body")
+    plan.update(body=BODIES[body.value], lanes_per_thread=lanes.value,
+                barriers_per_rank=barriers.value)
+    return plan
+
+
 def fill_plan(W: int, L: int, two_piece: bool = False) -> dict:
-    """Launch shape and working-set placement of the full-fill kernel (B2,
-    or B12 with ``two_piece``)."""
-    return _plan("poasta_fill_plan",
-                 FILL_GLOBAL_2P if two_piece else FILL_GLOBAL, W, L)
+    """Launch shape, body and working-set placement of the full-fill
+    kernel (B2, or B12 with ``two_piece``)."""
+    return _full_fill_plan(FILL_GLOBAL_2P if two_piece else FILL_GLOBAL, W,
+                           L, L)
 
 
 def _fill_variant(bounded: bool, ends: bool, two_piece: bool) -> int:
@@ -164,12 +185,12 @@ def _fill_variant(bounded: bool, ends: bool, two_piece: bool) -> int:
 
 
 def bounded_plan(W: int, L: int, ends: bool = False,
-                 two_piece: bool = False) -> dict:
-    """Launch shape and placement of the bounded full-fill kernel (B4, or
-    B13 with ``two_piece``), or with ``ends`` of the one that also keeps
-    the end ranks (B7, B14)."""
-    return _plan("poasta_fill_plan", _fill_variant(True, ends, two_piece),
-                 W, L)
+                 two_piece: bool = False, max_run: int = 0) -> dict:
+    """Launch shape, body and placement of the bounded full-fill kernel
+    (B4, or B13 with ``two_piece``), or with ``ends`` of the one that also
+    keeps the end ranks (B7, B14), at insertion cap ``max_run``."""
+    return _full_fill_plan(_fill_variant(True, ends, two_piece), W, L,
+                           _scan_cap(L, max_run))
 
 
 def variant_plan(variant: int, W: int, width: int, margin: int,
@@ -942,8 +963,14 @@ def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
     ranks = torch.empty_like(out) if ends else None
     if B == 0:
         return (out, ranks) if ends else out
+    if L % 128:
+        raise ValueError(f"the full-fill kernel takes rows of a multiple of "
+                         f"128 lanes (pack_queries' L), got {L}")
+    if qshift.data_ptr() % 16:
+        raise ValueError("the full-fill kernel takes 16-byte aligned query "
+                         "rows")
     with torch.cuda.device(dev):
-        plan = _plan("poasta_fill_plan", variant, dg.window, L)
+        plan = _full_fill_plan(variant, dg.window, L, _scan_cap(L, max_run))
         gws = _workspace(plan, B, dev)
         code = lib.poasta_full_fill(
             variant, dg.symbols.data_ptr(),
@@ -958,6 +985,8 @@ def _launch_full_fill(wrapper, dg, qshift, costs, free_start=False,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "full fill kernel launch")
     wrapper.launches += 1
+    if plan["body"] == "rows":
+        wrapper.rows_launches += 1
     return (out, ranks) if ends else out
 
 
@@ -974,6 +1003,7 @@ def fill_end_rows(dg, qshift: torch.Tensor, costs) -> torch.Tensor:
 
 
 fill_end_rows.launches = 0
+fill_end_rows.rows_launches = 0
 
 
 def fill_scores(dg, qshift: torch.Tensor, lengths: torch.Tensor,
@@ -1008,6 +1038,7 @@ def fill_end_rows_2p(dg, qshift: torch.Tensor, costs) -> torch.Tensor:
 
 
 fill_end_rows_2p.launches = 0
+fill_end_rows_2p.rows_launches = 0
 
 
 def fill_scores_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor,
@@ -1047,6 +1078,7 @@ def bounded_best_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
 
 
 bounded_best_rows.launches = 0
+bounded_best_rows.rows_launches = 0
 
 
 def bounded_scores(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
@@ -1092,6 +1124,7 @@ def bounded_end_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
 
 
 bounded_end_rows.launches = 0
+bounded_end_rows.rows_launches = 0
 
 
 def windowed_argmin(rows, lengths, jlo):
@@ -1160,6 +1193,7 @@ def bounded_best_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
 
 
 bounded_best_rows_2p.launches = 0
+bounded_best_rows_2p.rows_launches = 0
 
 
 def bounded_scores_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,
@@ -1210,6 +1244,7 @@ def bounded_end_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
 
 
 bounded_end_rows_2p.launches = 0
+bounded_end_rows_2p.rows_launches = 0
 
 
 def bounded_with_ends_2p(dg, qshift: torch.Tensor, lengths: torch.Tensor,
@@ -1282,6 +1317,7 @@ def free_fill_rows(dg, qshift: torch.Tensor, costs, free_start: bool,
 
 
 free_fill_rows.launches = 0
+free_fill_rows.rows_launches = 0
 
 
 def free_fill_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
@@ -1294,6 +1330,7 @@ def free_fill_rows_2p(dg, qshift: torch.Tensor, costs, free_start: bool,
 
 
 free_fill_rows_2p.launches = 0
+free_fill_rows_2p.rows_launches = 0
 
 
 def free_fill_scores(dg, qshift: torch.Tensor, lengths: torch.Tensor, costs,

@@ -109,6 +109,8 @@ def _load() -> ctypes.CDLL:
     lib.poasta_banded_fill.restype = i
     lib.poasta_fill_plan.argtypes = [i, i, i, pi, pi, pi, pll]
     lib.poasta_fill_plan.restype = i
+    lib.poasta_fill_body.argtypes = [i, i, i, i, pi, pi, pi]
+    lib.poasta_fill_body.restype = i
     lib.poasta_full_fill.argtypes = (
         [i] + [p] * 6 + [i] * 12 + [p, p, p, ll, p])
     lib.poasta_full_fill.restype = i

@@ -124,14 +124,15 @@ def test_banded_kernel_rings_in_global_memory(card):
 
 @pytest.mark.parametrize("read_len", [None, 12000])
 def test_fill_kernel_matches_plain(card, read_len):
-    """Short rows keep the working set in shared memory; a 12 kb row
-    puts even the scratch rows in global memory."""
+    """Short rows take the register body, rings in shared memory; a 12 kb
+    row takes the rows body, its scratch rows in global memory too."""
     g, reads = _case(3, 250, 64 if read_len is None else 2,
                      read_len=read_len)
     dg = DeviceGraph.build(g.flatten(), device=card)
     q, lengths = pack_queries(reads, device=card)
     plan = cf.fill_plan(dg.window, int(q.shape[1]))
     assert plan["placement"] == ("smem" if read_len is None else "global")
+    assert plan["body"] == ("registers" if read_len is None else "rows")
     before = cf.fill_end_rows.launches
     got = cf.fill_end_rows(dg, q, COSTS)
     torch.cuda.synchronize()
@@ -367,15 +368,16 @@ def test_ef_kernel_matches_plain(card, span, capped):
 @pytest.mark.parametrize("read_len,max_run", [(None, 0), (None, 16),
                                               (12000, 64)])
 def test_bounded_kernel_matches_plain(card, read_len, max_run):
-    """B4: in shared memory at short rows, in global memory at a 12 kb
-    row; capped and uncapped."""
+    """B4: the register body in shared memory at short rows, the rows
+    body in global memory at a 12 kb row; capped and uncapped."""
     g, reads = _case(14, 250, 64 if read_len is None else 2,
                      read_len=read_len)
     flat = g.flatten()
     dg = DeviceGraph.build(flat, device=card)
     q, lengths = pack_queries(reads, device=card)
-    plan = cf.bounded_plan(dg.window, int(q.shape[1]))
+    plan = cf.bounded_plan(dg.window, int(q.shape[1]), max_run=max_run)
     assert plan["placement"] == ("smem" if read_len is None else "global")
+    assert plan["body"] == ("registers" if read_len is None else "rows")
     fs, end_ok, jlo = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
                                               dg.n_nodes_padded)
     before = cf.bounded_best_rows.launches
@@ -698,14 +700,16 @@ def test_drift_2p_kernel_matches_plain(card, capped):
 
 @pytest.mark.parametrize("read_len", [None, 12000])
 def test_fill_2p_kernel_matches_plain(card, read_len):
-    """B12: short rows keep the working set in shared memory; a 12 kb row
-    puts even the scratch rows in global memory."""
+    """B12: short rows take the register body, rings in shared memory; a
+    12 kb row takes the rows body, its scratch rows in global memory
+    too."""
     g, reads = _case(34, 250, 64 if read_len is None else 2,
                      read_len=read_len)
     dg = DeviceGraph.build(g.flatten(), device=card)
     q, lengths = pack_queries(reads, device=card)
     plan = cf.fill_plan(dg.window, int(q.shape[1]), two_piece=True)
     assert plan["placement"] == ("smem" if read_len is None else "global")
+    assert plan["body"] == ("registers" if read_len is None else "rows")
     before = cf.fill_end_rows_2p.launches
     got = cf.fill_end_rows_2p(dg, q, COSTS_2P)
     torch.cuda.synchronize()
@@ -1149,3 +1153,166 @@ def test_split_placement_matches_plain(card, which):
         got = cf.drift_end_rows_2p(dg, qpad, nbs, COSTS_2P, prep, cap)
         assert torch.equal(got, cf.drift_end_rows_2p_plain(
             dg, qpad, nbs, COSTS_2P, prep, cap)), cap
+
+
+# ---- the full-fill template's bodies: widths, caps, placements, variants -----
+# Every case is held torch.equal to the plain version.  The register body
+# gives each thread K lanes; 4,224 and 4,992 lanes at K 8 and 6,272 at K 16
+# leave the last warp part past the row; 8,192 is its widest row (6,144
+# for B14), 8,320 the rows body's.
+
+FILL_NAMES = ("B2", "B4", "B7", "B12", "B13", "B14")  # variants 0, 1, 2, 3-5
+FILL_2P = ("B12", "B13", "B14")
+# csrc/fill_kernel.cu:fill_reg_max_threads, at K 4, 8 and 16
+FILL_MAX_THREADS = {"B2": (1024, 1024, 512), "B4": (1024, 1024, 512),
+                    "B7": (1024, 896, 512), "B12": (1024, 896, 512),
+                    "B13": (1024, 768, 512), "B14": (1024, 640, 384)}
+
+
+def _fill_expected_lanes(name, width):
+    """The smallest K whose threads, rounded up to a warp, fit the
+    variant's limit; 0 past the register body's widest row."""
+    for K, limit in zip((4, 8, 16), FILL_MAX_THREADS[name]):
+        if -(-(width // K) // 32) * 32 <= limit:
+            return K
+    return 0
+
+
+def _fill_case(card, seed, width, n_reads=3):
+    """A bubble graph (P = 3 at each join, invalid predecessor slots
+    elsewhere) and reads cut to fit, padded to ``width`` lanes."""
+    g, reads = _bubble_case(seed, 600, 2, 50, n_reads, div=0.03)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    assert not bool(dg.pred_valid_flat.view(-1, dg.pred_slots.shape[1])
+                    [: flat.n_nodes].bool().all())
+    q, lengths = pack_queries([r[:width - 1] for r in reads], device=card)
+    q = torch.nn.functional.pad(q, (0, width - int(q.shape[1]))).contiguous()
+    return flat, dg, q, lengths
+
+
+def _fill_plan(name, W, L, max_run=0):
+    two = name in FILL_2P
+    if name in ("B2", "B12"):
+        return cf.fill_plan(W, L, two_piece=two)
+    return cf.bounded_plan(W, L, ends=name in ("B7", "B14"), two_piece=two,
+                           max_run=max_run)
+
+
+def _fill_fns(name, dg, q, fs, end_ok, max_run):
+    """(wrapper, kernel call, plain call) of a full-fill variant."""
+    costs = COSTS_2P if name in FILL_2P else COSTS
+    if name in ("B2", "B12"):
+        w, p = ((cf.fill_end_rows_2p, cf.fill_end_rows_2p_plain)
+                if name == "B12" else (cf.fill_end_rows,
+                                       cf.fill_end_rows_plain))
+        return w, (lambda: w(dg, q, costs)), (lambda: p(dg, q, costs))
+    w, p = {"B4": (cf.bounded_best_rows, cf.bounded_best_rows_plain),
+            "B7": (cf.bounded_end_rows, cf.bounded_end_rows_plain),
+            "B13": (cf.bounded_best_rows_2p, cf.bounded_best_rows_2p_plain),
+            "B14": (cf.bounded_end_rows_2p, cf.bounded_end_rows_2p_plain)
+            }[name]
+    return (w, lambda: w(dg, q, costs, fs, end_ok, max_run),
+            lambda: p(dg, q, costs, fs, end_ok, max_run))
+
+
+def _fill_expected_placement(name, W, L):
+    """The register body's placement by the rings alone, beside the warp
+    carries and (bounded) the scan's suffix row."""
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    side = 128 + (0 if name in ("B2", "B12") else 4 * L)
+    ring = 4 * W * L
+    n_rings = 3 if name in FILL_2P else 2
+    if side + n_rings * ring <= optin:
+        return "smem"
+    if n_rings == 3 and side + 2 * ring <= optin:
+        return "rings-split"
+    return "rings-global"
+
+
+def _fill_check(card, name, flat, dg, q, lengths, caps, body):
+    """Each cap, alternating a free graph begin with a dense end mask (the
+    semi-global span) and the end rank alone: kernel equal to plain, one
+    launch, on ``body``."""
+    fs, end_ok, _ = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                            dg.n_nodes_padded,
+                                            name in FILL_2P)
+    masks = [(fs, end_ok), (False, cf.free_end_mask(dg, False))]
+    for i, cap in enumerate(caps):
+        f, m = masks[i % 2]
+        wrapper, kernel, plain = _fill_fns(name, dg, q, f, m, cap)
+        before = wrapper.launches, wrapper.rows_launches
+        got = kernel()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before[0] + 1
+        assert wrapper.rows_launches == before[1] + (body == "rows")
+        want = plain()
+        gots = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(gots, wants)), (name,
+                                                                     cap)
+
+
+@pytest.mark.parametrize("width", [384, 1152, 4224, 4992, 6144, 6272,
+                                   8192])
+@pytest.mark.parametrize("name", FILL_NAMES)
+def test_fill_register_body_matches_plain(card, width, name):
+    """B2, B4, B7, B12, B13 and B14 at caps 1, 2, one warp's span (32 K)
+    and the row (the global fills scan the whole row), with the body,
+    lanes, threads, barriers and placement the plan gives: the register
+    body, or for B14 past 6,144 lanes the rows body."""
+    flat, dg, q, lengths = _fill_case(card, 200 + width, width)
+    plan = _fill_plan(name, dg.window, width)
+    K = _fill_expected_lanes(name, width)
+    if K == 0:
+        assert plan["body"] == "rows", plan
+        K = 4  # the caps below
+    else:
+        assert plan["body"] == "registers" and plan["barriers_per_rank"] == 2
+        assert plan["lanes_per_thread"] == K, plan
+        assert plan["threads"] == -(-(width // K) // 32) * 32 <= 1024
+        assert plan["placement"] == _fill_expected_placement(
+            name, dg.window, width), plan
+    caps = [0] if name in ("B2", "B12") else [1, 2, 32 * K, 0]
+    _fill_check(card, name, flat, dg, q, lengths, caps, plan["body"])
+
+
+@pytest.mark.parametrize("name", FILL_NAMES)
+def test_fill_rows_body_past_the_register_body(card, name):
+    """Past 8,192 lanes the plan takes the rows body (scratch rows and
+    block_prefix_min: 3 + log2(cap) barriers a rank), by shape alone."""
+    width = 8320
+    flat, dg, q, lengths = _fill_case(card, 300, width, n_reads=2)
+    plan = _fill_plan(name, dg.window, width, 64)
+    assert plan["body"] == "rows", plan
+    assert plan["barriers_per_rank"] == (3 + 14 if name in ("B2", "B12")
+                                         else 3 + 6)
+    caps = [0] if name in ("B2", "B12") else [64, 0]
+    _fill_check(card, name, flat, dg, q, lengths, caps, "rows")
+
+
+@pytest.mark.parametrize("name", FILL_NAMES)
+def test_fill_register_body_placements(card, name):
+    """Each placement the register body can take on this graph's ring
+    (W rows): the narrowest row (a multiple of 128 within the register
+    body's reach) that gives it, at caps 2,048 and the row.  Two-piece
+    rings must split somewhere, one-piece rings leave shared memory."""
+    flat, dg, q, lengths = _fill_case(card, 400, 8192, n_reads=2)
+    seen = []
+    for target in ("smem", "rings-split", "rings-global"):
+        widths = [L for L in range(128, 8193, 128)
+                  if _fill_expected_lanes(name, L)
+                  and _fill_expected_placement(name, dg.window, L) == target]
+        if not widths:  # past the register body's reach at this W
+            continue
+        width = widths[0]
+        plan = _fill_plan(name, dg.window, width)
+        assert plan["body"] == "registers" and plan["placement"] == target, (
+            target, plan)
+        qw = q[:, :width].contiguous()
+        caps = [0] if name in ("B2", "B12") else [2048, 0]
+        _fill_check(card, name, flat, dg, qw, torch.clamp(
+            lengths, max=width - 1), caps, "registers")
+        seen.append(target)
+    assert seen[0] == "smem" and ("rings-split" if name in FILL_2P
+                                  else "rings-global") in seen, seen
