@@ -44,6 +44,12 @@ events, median of 5 after a warm-up:
   ``chip_smoke.py`` phase 11b runs it;
 * B14 ``bounded_end_rows_2p`` on the same 64 reads under the two-piece
   costs, cap 2048, as ``chip_smoke.py`` 10b's ``align_batch`` gives it;
+* B18 ``trace_fill`` at the inputs ``BatchMapper.align_batch`` gives it on
+  64 uniform reads (a batch of ``lasagna align -j 64``: Wb 1024, 6,086
+  ranks), and with ``free_start`` on the pangenome configuration's second
+  semi-global batch of 64 (traced from its end states: Wb 256, 50,002
+  ranks), whose seeded corridor fill gives B8 ``seed_end_states`` its
+  inputs (64 reads, Wb 2560), each at the widest call of its batch;
 * B11's size, ``banded_end_rows`` (B1) on phase 11a's 40,002-rank graph
   and 64 reads of ~40 kb: at the inputs ``score_batch`` gives it (its
   second call), and at ``scripts/bigbanded_40k.py``'s fixed windows of ub
@@ -305,6 +311,45 @@ def main() -> int:
            f"{cf.bounded_plan(dg.window, L, ends=True, two_piece=True)}",
            lambda: cf.bounded_end_rows_2p(dg, q, costs2p, fs2, end_ok2,
                                           2048)[0])
+
+    # the trace fill (B18) and the seeded corridor fill (B8) at the inputs
+    # the main paths give them: a batch of 64 uniform reads, and the
+    # pangenome configuration's second semi-global batch (seeded, then
+    # traced from its end states with free_start)
+    from poasta_tpu_torch.ops import seed as seed_mod
+    from poasta_tpu_torch.ops import trace as trace_mod
+
+    launch_trace = trace_mod._launch_trace
+    with mock.patch.object(trace_mod, "_launch_trace",
+                           keep_widest("B18 global", launch_trace)):
+        m = BatchMapper(graph, costs, device=dev)
+        m.DENSE_TABLE_BUDGET = 0  # the banded route, as the CLI's batches
+        m.align_batch(reads[:PAN_BATCH])
+    m = BatchMapper(pan_graph, costs, device=dev, aln_type=semi)
+    m.align_batch(pan_reads[:PAN_BATCH])  # the first batch learns the rates
+    with mock.patch.object(trace_mod, "_launch_trace",
+                           keep_widest("B18 free_start", launch_trace)), \
+            mock.patch.object(seed_mod, "_launch_seed",
+                              keep_widest("B8", seed_mod._launch_seed)):
+        m.align_batch(pan_reads[PAN_BATCH:2 * PAN_BATCH])
+    del m
+    for name in ("B18 global", "B18 free_start"):
+        args, _ = captured[name]
+        t_dg, qpad, Wb, fs_t = args[0], args[1], args[6], args[7]
+        report(name, f"{int(qpad.shape[0])} reads, LQ {int(qpad.shape[1])}, "
+               f"Wb {Wb}, {t_dg.n_nodes} ranks, free_start {fs_t}, plan "
+               f"{trace_mod.trace_plan(t_dg.window, Wb)}",
+               lambda: trace_mod.trace_fill(*args)[1])
+    args, _ = captured["B8"]
+    s_dg, qs, r_begin, r_end, Wb, mr = (args[0], args[1], args[5], args[6],
+                                        args[10], args[11])
+    span = r_end - r_begin
+    report("B8", f"{int(qs.shape[0])} reads, L {int(qs.shape[1])}, Wb {Wb}, "
+           f"max_run {mr}, ranges of {int(span.min())}-{int(span.max())} "
+           f"ranks ({int(span.sum())} in all), plan "
+           f"{seed_mod.seed_plan(s_dg.window, Wb)}",
+           lambda: seed_mod.seed_end_states(*args))
+    captured.clear()
 
     rng = random.Random(BB_SEED)
     graph, base = backbone_graph(rng, BB_LEN, BB_EDGE_EVERY)

@@ -177,9 +177,11 @@ template (B1, B3, B5, B6, B16, B17 and B11) also gives, at its shape, the
 body the plan chose, its threads, lanes a thread, barriers a rank (and at
 a drift re-frame) and shared memory (``banded_fields``), and counts the
 launches of its register body.  Each row of the full-fill template (B2,
-B4, B7, B9, B12, B13, B14, B2f, B12f) gives the same fields at its shape
-(``fill_fields``), and ``redesigned`` where the plan chose the register
-body.  A main path's launches that the plan sends to a rows body
+B4, B7, B9, B12, B13, B14, B2f, B12f), of the trace fill (B18, both
+forms, and B19's size) and of the seeded fill (B8) gives the same fields
+at its shape (``fill_fields``), and ``redesigned`` where the plan chose
+the register body (the trace and seeded fills have no other).  A main
+path's launches that the plan sends to a rows body
 (``banded_rows_kernel``: bands past the register body's 6,144-10,752
 lanes; ``full_fill_rows_kernel``: rows past 8,192, 6,144 for B14) have
 rows of their own: B16's one-read launches of 9e, and B1's of 6e where
@@ -457,7 +459,8 @@ def banded_fields(plan):
 
 def fill_fields(plan):
     """The kernels line's fields of a row of the full-fill template
-    (csrc/fill_kernel.cu), as banded_fields gives them for the banded
+    (csrc/fill_kernel.cu), the trace fill (trace_kernel.cu) or the seeded
+    fill (seed_kernel.cu), as banded_fields gives them for the banded
     rows."""
     fields = {k: plan[k] for k in PLAN_FIELDS}
     fields["redesigned"] = (
@@ -1209,7 +1212,8 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
     results["B18"].update(fill_bound(
         g_dg, n_reads, Wb, int(inp["qpad"].shape[1]),
         g_dg.n_nodes * Wb + 1, tilted=True, per_pred=TRACE_PRED_OPS,
-        per_rank=TRACE_OPS, table_cols=n_reads))
+        per_rank=TRACE_OPS, table_cols=n_reads),
+        **fill_fields(tr.trace_plan(g_dg.window, Wb)))
     # decode: one dependent chain per read; its steps are counted from this
     # run's step words
     steps = int((dec_k()[0] != 0).sum())
@@ -1300,7 +1304,8 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
                       **fill_bound(g_dg, n_reads, Wb, int(qpad.shape[1]),
                                    g_dg.n_nodes * Wb + 1, tilted=True,
                                    per_pred=TRACE_PRED_OPS,
-                                   per_rank=TRACE_OPS, table_cols=n_reads)}
+                                   per_rank=TRACE_OPS, table_cols=n_reads),
+                      **fill_fields(tr.trace_plan(g_dg.window, Wb))}
     print(f"[big] {b_mapper.dg.n_nodes} ranks (Np {b_mapper.dg.n_nodes_padded}"
           f"), {BIG_READS} reads of {min(map(len, b_reads))}-"
           f"{max(map(len, b_reads))}: scoring {score_s:.2f} s; device trace "
@@ -1935,7 +1940,8 @@ def pangenome_phases(card, dev, costs):
         ranks * Wb * (RECURRENCE_OPS - 1 + SCAN_OPS + PRED_OPS * extra_preds
                       + SEED_END_OPS * may_end)))
     results["B8"].update(reads_compared=int(q.shape[0]),
-                         whole_call_ms=full_ms)
+                         whole_call_ms=full_ms,
+                         **fill_fields(sd.seed_plan(g_dg.window, Wb)))
 
     _, args, kwargs = captured["B18"]
     g_dg, qpad, wst, ar, aj, c, Wb = args[:7]
@@ -1958,7 +1964,8 @@ def pangenome_phases(card, dev, costs):
                                     free_start=True), card, reps=3)
     results["B18"].update(fill_bound(
         g_dg, 8, Wb, int(qpad.shape[1]), g_dg.n_nodes * Wb + 1, tilted=True,
-        per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8))
+        per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8),
+        **fill_fields(tr.trace_plan(g_dg.window, Wb)))
     results["B18"]["reads_compared"] = 8
     _phase_done("8d B7, B8, B18 free_start at the main path's shapes")
     # phase 11b runs B4 over this graph on 8a's batch

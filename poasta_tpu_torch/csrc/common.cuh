@@ -31,15 +31,15 @@ struct PoastaPlan {
     long long global_ints;  // per block
 };
 
-// Number of scratch rows a row-based kernel keeps (the full, seeded and
-// trace fills, the banded rows body): min_pm, D, A, and two rows for the
-// prefix-min scan (block_prefix_min's ping-pong buffers, or the banded
-// window scan's input and suffix row).  The banded register body keeps
-// none: it places its rings by banded_plan's own rule.
+// Number of scratch rows a row-based kernel keeps (the rows bodies of the
+// full and banded fills): min_pm, D, A, and two rows for the prefix-min
+// scan (block_prefix_min's ping-pong buffers, or the banded window scan's
+// input and suffix row).  The register bodies keep none: they place their
+// rings by reg_body.cuh's reg_placement.
 #define POASTA_ROWS 5
 
 // `row_ints` is the size of the scratch-row region (POASTA_ROWS rows of
-// `row_lanes` lanes for the fills; the trace kernel keeps more).
+// `row_lanes` lanes, and a body's own rows).
 static inline cudaError_t poasta_plan(int row_lanes, long long row_ints,
                                       long long ring_ints, PoastaPlan* plan) {
     int dev = 0, optin = 0;

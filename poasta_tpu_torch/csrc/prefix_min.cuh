@@ -1,8 +1,9 @@
 // Block-wide inclusive prefix-min along a row, truncated to a look-back
 // window.  Replaces poasta_tpu/ops/pallas_fill.py:_prefix_min_rows.  Two
-// forms: block_prefix_min over a row in memory (the full fills, the seeded
-// corridor fill and the trace fill), and below it the window scan of the
-// banded kernels over lanes held in threads' registers.
+// forms: block_prefix_min over a row in memory (the full fills' rows body,
+// fill_kernel.cu:full_fill_rows_kernel), and below it the window scan over
+// lanes held in threads' registers (the register bodies of the banded,
+// full, seeded and trace fills, and the banded rows body's thread chunks).
 //
 // Hillis-Steele rounds k = 1, 2, 4, ... while k < cap: after them lane j
 // holds the min over lanes [j - w + 1, j], where w = the first power of
@@ -40,7 +41,7 @@ __device__ __forceinline__ const int* block_prefix_min(int* buf0, int* buf1,
 // ---------------------------------------------------------------------------
 // The same truncated window as van Herk / Gil-Werman, for a block whose
 // thread t owns the `kt` contiguous lanes [t*kt, t*kt + kt) (kt a power of
-// two; blockDim.x a multiple of 32).  The banded kernels use it.
+// two; blockDim.x a multiple of 32).  The register bodies use it.
 //
 // With w = the first power of two >= cap, cut the row into segments of w
 // lanes at multiples of w.  The insertion at lane i needs the min over

@@ -1,8 +1,9 @@
 // The register bodies' shared pieces: banded_kernel.cu's banded_reg_kernel
-// (B1, B3, B5, B6, B16, B17) and fill_kernel.cu's full_fill_reg_kernel
-// (B2, B4, B7, B12, B13, B14).  In both, thread t owns the K contiguous
-// lanes [tK, tK + K) of a rank (K in {4, 8, 16}), and a rank takes
-// REG_BARRIERS barriers:
+// (B1, B3, B5, B6, B16, B17), fill_kernel.cu's full_fill_reg_kernel
+// (B2, B4, B7, B12, B13, B14), seed_kernel.cu's seed_fill_kernel (B8) and
+// trace_kernel.cu's trace_fill_kernel (B18).  In each, thread t owns the K
+// contiguous lanes [tK, tK + K) of a rank (K in {4, 8, 16}), and a rank
+// takes REG_BARRIERS barriers:
 //   * the K + 1 lane gather (gather_lanes, and the caller's load of lane
 //     tK - 1): each thread loads its own K lanes of every predecessor row
 //     as int4 and lane tK - 1, so the diagonal min_pm(lane - 1) is its own
@@ -116,9 +117,11 @@ __device__ __forceinline__ void gather_lanes(const int* mring,
 // scanned tilted and tilted back), `agg` its min; w is the first power of
 // two >= the cap and `windowed` is w < the row's lanes (else the window is
 // the whole prefix and the suffix row goes unused).  Leaves
-// M = min(A, min(window + o (+ e*lane), INF)) in `m`.  Every thread of the
-// block calls it (barrier 1 is inside: the carries and the suffix row).
-template <int K, bool UNTILT>
+// M = min(A, min(window + o (+ e*lane), INF)) in `m`, or with INS_ONLY the
+// insertion I = min(window + o, INF) alone (the trace fill needs I beside
+// M).  Every thread of the block calls it (barrier 1 is inside: the
+// carries and the suffix row).
+template <int K, bool UNTILT, bool INS_ONLY = false>
 __device__ __forceinline__ void reg_insertion(const int (&s)[K], int agg,
                                               int base, bool active, int w,
                                               bool windowed, int o, int e,
@@ -177,7 +180,8 @@ __device__ __forceinline__ void reg_insertion(const int (&s)[K], int agg,
             const int win = min(run, sv[u]);
             run = min(run, s[k]);
             const int back = UNTILT ? e * i : 0;  // back from the scan's tilt
-            m[k] = min(s[k] + back, add_min(win, o + back, POASTA_INF));
+            const int ins = add_min(win, o + back, POASTA_INF);
+            m[k] = INS_ONLY ? ins : min(s[k] + back, ins);
         }
     }
 }

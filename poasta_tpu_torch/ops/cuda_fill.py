@@ -142,6 +142,22 @@ def _plan(fn, *args) -> dict:
             "smem_bytes": smem.value, "global_ints_per_read": gints.value}
 
 
+def register_plan(fn, W: int, Wb: int) -> dict:
+    """Launch shape and placement of a kernel that has the register body
+    alone (``poasta_trace_plan``, ``poasta_seed_plan``) for a ring of W rows
+    of Wb lanes: as :func:`_full_fill_plan` gives them, with ``body``
+    "registers" (needs the card)."""
+    lib = build.load()
+    outs = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()] \
+        + [ctypes.c_int() for _ in range(2)]
+    build.check(lib, getattr(lib, fn)(W, Wb, *map(ctypes.byref, outs)), fn)
+    threads, mode, smem, gints, lanes, barriers = (o.value for o in outs)
+    return {"threads": threads, "placement": PLACEMENTS[mode],
+            "smem_bytes": smem, "global_ints_per_read": gints,
+            "body": "registers", "lanes_per_thread": lanes,
+            "barriers_per_rank": barriers}
+
+
 def banded_plan(W: int, width: int, margin: int,
                 two_piece: bool = False) -> dict:
     """Launch shape and working-set placement of the banded kernel (B1, or

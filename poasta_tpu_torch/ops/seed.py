@@ -21,14 +21,12 @@ a CPU tensor, the plain version's) end states.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..aligner.banded import ins_run_cap
 from ..utils import build
-from .cuda_fill import PLACEMENTS, _check_operands, _prefix_min, _scan_cap
+from .cuda_fill import _check_operands, _prefix_min, _scan_cap, register_plan
 from .dp_rows import INF, _shift_right
 from .trace import _sched_potentials, _schedule_body
 
@@ -37,16 +35,10 @@ NO_RANK = 1 << 30  # the end rank of a read whose range holds no rank
 
 
 def seed_plan(W: int, Wb: int) -> dict:
-    """Launch shape and working-set placement of the seed kernel for a
-    ring of W rows of Wb lanes (needs the card)."""
-    lib = build.load()
-    threads, mode, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    gints = ctypes.c_longlong()
-    build.check(lib, lib.poasta_seed_plan(
-        W, Wb, ctypes.byref(threads), ctypes.byref(mode), ctypes.byref(smem),
-        ctypes.byref(gints)), "poasta_seed_plan")
-    return {"threads": threads.value, "placement": PLACEMENTS[mode.value],
-            "smem_bytes": smem.value, "global_ints_per_read": gints.value}
+    """Launch shape, body and working-set placement of the seed kernel for
+    a ring of W rows of Wb lanes, as :func:`..ops.trace.trace_plan` gives
+    them (needs the card)."""
+    return register_plan("poasta_seed_plan", W, Wb)
 
 
 def corridor_width(costs, alpha_min, beta_max, ub_np) -> int:
@@ -203,6 +195,8 @@ def _launch_seed(dg, qshift, wstarts, lengths, jlo, r_begin, r_end, costs,
             raise ValueError(f"{name} must have shape ({B},)")
     if Wb % 128 or Wb < 128 or Wb > WB_MAX:
         raise ValueError(f"seed corridor width {Wb}")
+    if L % 4:
+        raise ValueError(f"seed query rows of {L} lanes (a multiple of 4)")
     out = torch.empty((B, 3), dtype=torch.int32, device=dev)
     if B == 0:
         return out

@@ -30,7 +30,6 @@ native engine's backtrace.
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import numpy as np
@@ -38,7 +37,7 @@ import torch
 
 from ..utils import build
 from ..utils.device import resolve_device
-from .cuda_fill import PLACEMENTS, _check_operands, _prefix_min
+from .cuda_fill import _check_operands, _prefix_min, register_plan
 from .dp_rows import INF
 
 # pointer-word layout (int32), as poasta_tpu/ops/pallas_trace.py:67-73:
@@ -163,16 +162,11 @@ def window_starts(steps: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def trace_plan(W: int, Wb: int) -> dict:
-    """Launch shape and working-set placement of the trace kernel for a
-    ring of W rows of Wb lanes (needs the card)."""
-    lib = build.load()
-    threads, mode, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    gints = ctypes.c_longlong()
-    build.check(lib, lib.poasta_trace_plan(
-        W, Wb, ctypes.byref(threads), ctypes.byref(mode), ctypes.byref(smem),
-        ctypes.byref(gints)), "poasta_trace_plan")
-    return {"threads": threads.value, "placement": PLACEMENTS[mode.value],
-            "smem_bytes": smem.value, "global_ints_per_read": gints.value}
+    """Launch shape, body and working-set placement of the trace kernel for
+    a ring of W rows of Wb lanes: ``threads``, ``lanes_per_thread`` (each
+    thread holds that many lanes of a rank in registers),
+    ``barriers_per_rank``, ``smem_bytes``, ``placement`` (needs the card)."""
+    return register_plan("poasta_trace_plan", W, Wb)
 
 
 def _roll1(t: torch.Tensor) -> torch.Tensor:
@@ -305,7 +299,7 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb,
     _check_operands(dev, **operands)
     if tuple(wstarts.shape) != (B, Np):
         raise ValueError(f"wstarts {tuple(wstarts.shape)} != {(B, Np)}")
-    if Wb % 128 or Wb > 4096 or LQ < Wb + 128:
+    if Wb % 128 or Wb > 4096 or LQ < Wb + 128 or LQ % 4:
         raise ValueError(f"trace tier Wb {Wb} with query row {LQ}")
     if int(dg.pred_slots.shape[1]) > PMAX:
         raise ValueError("in-degree past the pointer word's 5-bit field")
@@ -529,9 +523,6 @@ def tier_inputs(dg, flat, qshift, lengths_np, k_np, Wb: int,
     }, ok
 
 
-TRACE_SCRATCH_ROWS = 7  # csrc/trace_kernel.cu TRACE_ROWS
-
-
 def free_bytes(dev) -> int:
     """Bytes the device holding a batch can still hand out: the card's
     free memory plus what PyTorch's allocator holds unused, or the host's
@@ -545,10 +536,11 @@ def free_bytes(dev) -> int:
 
 def tier_bytes_per_read(dg, Wb: int) -> int:
     """Device bytes one read takes at tier width ``Wb``: its pointer
-    planes, window starts, and the ring slab the kernel may place in
-    global memory."""
-    return 4 * (dg.n_nodes_padded * (Wb + 1)
-                + (2 * dg.window + TRACE_SCRATCH_ROWS) * Wb + dg.window)
+    planes, window starts, and the working set the kernel may place in its
+    global slab (csrc/trace_kernel.cu: the rings, the warp words and the
+    slot starts)."""
+    return 4 * (dg.n_nodes_padded * (Wb + 1) + 2 * dg.window * Wb + 32
+                + -(-dg.window // 4) * 4)
 
 
 def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,

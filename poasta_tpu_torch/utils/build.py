@@ -114,13 +114,13 @@ def _load() -> ctypes.CDLL:
     lib.poasta_full_fill.argtypes = (
         [i] + [p] * 6 + [i] * 12 + [p, p, p, ll, p])
     lib.poasta_full_fill.restype = i
-    lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll]
+    lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll, pi, pi]
     lib.poasta_trace_plan.restype = i
     lib.poasta_trace_fill.argtypes = [p] * 8 + [i] * 12 + [p, p, p, ll, p]
     lib.poasta_trace_fill.restype = i
     lib.poasta_trace_decode.argtypes = [p] * 6 + [i] * 6 + [p, p, p]
     lib.poasta_trace_decode.restype = i
-    lib.poasta_seed_plan.argtypes = [i, i, pi, pi, pi, pll]
+    lib.poasta_seed_plan.argtypes = [i, i, pi, pi, pi, pll, pi, pi]
     lib.poasta_seed_plan.restype = i
     lib.poasta_seed_fill.argtypes = [p] * 11 + [i] * 12 + [p, p, ll, p]
     lib.poasta_seed_fill.restype = i

@@ -197,19 +197,22 @@ def _trace_tier(card, g, reads, Wb):
     ops_p, done_p = tr.decode_plain(ptr, *walk)
     assert torch.equal(ops, ops_p)
     assert torch.equal(done, done_p)
-    return tr.trace_plan(dg.window, Wb)["placement"], int(verified.sum())
+    return tr.trace_plan(dg.window, Wb), dg.window, int(verified.sum())
 
 
 @pytest.mark.parametrize("Wb", [256, 4096])
 def test_trace_kernels_match_plain(card, Wb):
-    """Rings in shared memory at Wb 256 and in global memory at Wb 4096
-    (W = 4 rings of 4096 lanes pass 227 KB with the scratch rows); the
-    last read carries a 120-base deletion that the first tier cannot
-    verify."""
+    """The trace at the narrowest and widest tiers, its rings where the
+    register body's plan puts them (beside the warp carries, the warp
+    words and the slot starts: in shared memory on this graph's ring at
+    both widths); the last read carries a 120-base deletion that the first
+    tier cannot verify."""
     g, reads = _case(5, 300, 63)
     reads.append(reads[0][:80] + reads[0][200:])
-    placement, n_verified = _trace_tier(card, g, reads, Wb)
-    assert placement == ("smem" if Wb == 256 else "rings-global")
+    plan, W, n_verified = _trace_tier(card, g, reads, Wb)
+    assert plan["body"] == "registers" and plan["barriers_per_rank"] == 2
+    assert plan["placement"] == _reg_expected_placement(W, Wb,
+                                                        _trace_side(W))
     assert n_verified >= 60
 
 
@@ -1316,3 +1319,229 @@ def test_fill_register_body_placements(card, name):
         seen.append(target)
     assert seen[0] == "smem" and ("rings-split" if name in FILL_2P
                                   else "rings-global") in seen, seen
+
+
+# ---- the trace and seeded fills' register bodies: widths, caps, placements ---
+# Each case is held torch.equal to the plain version on random monotone
+# window steps (0 or 128 lanes a rank, as a schedule gives them).
+
+# csrc/trace_kernel.cu:TRACE_LANES and seed_kernel.cu:SEED_LANES
+REG_LANES = 4
+TRACE_WIDTHS = (128, 256, 384, 1024, 1152, 4096)
+SEED_WIDTHS = (128, 256, 1024, 2560, 4096)
+
+
+def _trace_side(W):
+    """The trace's side words: one a warp, then the W slot starts."""
+    return 32 + -(-W // 4) * 4
+
+
+def _seed_side(W, Wb):
+    """The seed's side rows: the scan's suffix row, then the slot starts."""
+    return Wb + -(-W // 4) * 4
+
+
+def _reg_expected_placement(W, Wb, side_ints):
+    """The rings (M and D, W rows of Wb lanes) in shared memory where they
+    fit beside the warp carries and the side words, else in the slab."""
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    side = 128 + 4 * side_ints
+    if side + 8 * W * Wb <= optin:
+        return "smem"
+    return "rings-global" if side <= optin else "global"
+
+
+def _check_reg_plan(plan, W, Wb, side_ints):
+    assert plan["body"] == "registers" and plan["barriers_per_rank"] == 2
+    assert plan["lanes_per_thread"] == REG_LANES, plan
+    assert plan["threads"] == -(-(Wb // REG_LANES) // 32) * 32, plan
+    assert plan["placement"] == _reg_expected_placement(W, Wb,
+                                                        side_ints), plan
+
+
+def _random_steps(card, dg, B, seed, rate=0.2):
+    rng = np.random.default_rng(seed)
+    steps = rng.random((B, dg.n_nodes_padded)) < rate
+    steps[:, dg.n_nodes:] = False
+    return rng, torch.as_tensor(steps, device=card)
+
+
+def _trace_inputs(card, dg, q, lengths, Wb, rng, steps, anchor):
+    """qpad of max(L, Wb + 128) lanes, the window starts of ``steps`` and
+    anchors: "end" the global one, "inside" a random rank at an offset of
+    its window, "outside" past it."""
+    B, L = q.shape
+    qpad = torch.nn.functional.pad(q, (0, max(L, Wb + 128) - L)).contiguous()
+    wst = tr.window_starts(steps).contiguous()
+    if anchor == "end":
+        ar = np.full(B, dg.end_rank_i)
+        aj = lengths.cpu().numpy()
+    else:
+        ar = rng.integers(0, dg.n_nodes, B)
+        w = wst.cpu().numpy()[np.arange(B), ar]
+        aj = w + (rng.integers(0, Wb, B) if anchor == "inside"
+                  else Wb + rng.integers(0, 256, B))
+    return {"qpad": qpad, "wstarts": wst,
+            "anchor_r": torch.as_tensor(ar.astype(np.int32), device=card),
+            "anchor_j": torch.as_tensor(aj.astype(np.int32), device=card)}
+
+
+def _trace_check(dg, inp, Wb, free_start):
+    before = tr.trace_fill.launches
+    aval, ptr = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb,
+                              free_start=free_start)
+    torch.cuda.synchronize()
+    assert tr.trace_fill.launches == before + 1
+    aval_p, ptr_p = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
+                                        free_start=free_start)
+    assert torch.equal(aval, aval_p) and torch.equal(ptr, ptr_p), (
+        Wb, free_start)
+
+
+@pytest.mark.parametrize("Wb", TRACE_WIDTHS)
+def test_trace_register_body_matches_plain(card, Wb):
+    """B18 at every tier width (and 128, 384, 1,152), global and with
+    ``free_start``, anchors at the end,
+    inside and outside their windows, on a P = 3 bubble graph with invalid
+    predecessor slots; the plan's body, lanes, threads, barriers and
+    placement."""
+    flat, dg, q, lengths = _fill_case(card, 500 + Wb, Wb)
+    _check_reg_plan(tr.trace_plan(dg.window, Wb), dg.window, Wb,
+                    _trace_side(dg.window))
+    rng, steps = _random_steps(card, dg, int(q.shape[0]), Wb)
+    for fs, anchor in ((False, "end"), (True, "inside"), (True, "outside"),
+                       (False, "inside")):
+        _trace_check(dg, _trace_inputs(card, dg, q, lengths, Wb, rng, steps,
+                                       anchor), Wb, fs)
+
+
+def _seed_inputs(card, dg, lengths, Wb, rng, steps, ranges):
+    """Window starts entering each read's rank range
+    (``range_window_starts``) and the ranges: "all", "wide" (a random
+    stretch), "one" rank, "empty"."""
+    from poasta_tpu_torch.ops import seed as sd
+
+    B, n = int(lengths.shape[0]), dg.n_nodes
+    if ranges == "all":
+        rb, re = np.zeros(B, np.int64), np.full(B, n, np.int64)
+    else:
+        rb = rng.integers(0, n, B)
+        re = {"empty": rb, "one": rb + 1,
+              "wide": np.minimum(rb + rng.integers(1, n + 1, B), n)}[ranges]
+    start = torch.cumsum(steps.to(torch.int64), dim=1) * 128
+    r_begin = torch.as_tensor(rb, device=card)
+    wst = sd.range_window_starts(steps, start, r_begin).contiguous()
+    jlo = rng.integers(0, 3, B)
+
+    def i32(v):
+        return torch.as_tensor(np.asarray(v).astype(np.int32), device=card)
+    return wst, i32(jlo), i32(rb), i32(re)
+
+
+def _seed_check(dg, q, lengths, wst, jlo, rb, re, fs, end_ok, Wb, max_run):
+    from poasta_tpu_torch.ops import seed as sd
+
+    ln = lengths.to(torch.int32).contiguous()
+    args = (dg, q, wst, ln, jlo, rb, re, COSTS, fs, end_ok, Wb, max_run)
+    before = sd.seed_end_states.launches
+    got = sd.seed_end_states(*args)
+    torch.cuda.synchronize()
+    assert sd.seed_end_states.launches == before + 1
+    want = sd.seed_end_states_plain(*args)
+    assert torch.equal(got, want), (Wb, max_run)
+    return got
+
+
+@pytest.mark.parametrize("Wb", SEED_WIDTHS)
+def test_seed_register_body_matches_plain(card, Wb):
+    """B8 at corridor widths 128 ... 4,096 (2,560 the main path's) at caps
+    1, 64, 1,024 and past the window, over every read's whole range, random
+    stretches, one rank and empty ranges ((INF, -1, 2^30)), under the
+    semi-global span's end mask and free graph begin and under the end
+    rank alone; the plan's body, lanes, threads, barriers and placement."""
+    from poasta_tpu_torch.ops import seed as sd
+
+    flat, dg, q, lengths = _fill_case(card, 600 + Wb, Wb)
+    _check_reg_plan(sd.seed_plan(dg.window, Wb), dg.window, Wb,
+                    _seed_side(dg.window, Wb))
+    fs, end_ok, _ = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                            dg.n_nodes_padded)
+    masks = [(fs, end_ok), (False, cf.free_end_mask(dg, False))]
+    rng, steps = _random_steps(card, dg, int(q.shape[0]), Wb)
+    for i, (cap, ranges) in enumerate(zip((1, 64, 1024, Wb + 1),
+                                          ("all", "wide", "one", "empty"))):
+        f, m = masks[i % 2]
+        inp = _seed_inputs(card, dg, lengths, Wb, rng, steps, ranges)
+        got = _seed_check(dg, q, lengths, *inp, f, m, Wb,
+                          cap if cap <= Wb else 0)
+        if ranges == "empty":
+            assert (got.cpu().numpy() == [INF_SCORE, -1, 1 << 30]).all()
+
+
+INF_SCORE = 1 << 28  # csrc/common.cuh POASTA_INF
+
+
+def _wide_ring_case(card, seed, n=400, span=24, every=2, n_reads=3):
+    """A backbone with an edge v -> v + span every ``every`` nodes, so
+    about span / every rows stay live at once (a wide ring, W >= 10), and
+    reads cut from it."""
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(n))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
+    for v in range(0, n - span, every):
+        g.add_edge(v, v + span, 0, 1)
+    g.post_process()
+    reads = [_mutate(rng, base[a:a + 120], 0.02).encode()
+             for a in (rng.randrange(0, n - 120) for _ in range(n_reads))]
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    assert dg.window >= 10, dg.window
+    q, lengths = pack_queries(reads, device=card)
+    return flat, dg, q, lengths
+
+
+def _widths_for(W, side_fn, target):
+    return [Wb for Wb in range(128, 4097, 128)
+            if _reg_expected_placement(W, Wb, side_fn(Wb)) == target]
+
+
+def test_trace_register_body_placements(card):
+    """B18's rings in shared memory and in the block's global slab: the
+    narrowest tier width that gives each on a wide ring."""
+    flat, dg, q, lengths = _wide_ring_case(card, 71)
+    seen = []
+    for target in ("smem", "rings-global"):
+        Wb = _widths_for(dg.window, lambda _: _trace_side(dg.window),
+                         target)[0]
+        plan = tr.trace_plan(dg.window, Wb)
+        _check_reg_plan(plan, dg.window, Wb, _trace_side(dg.window))
+        rng, steps = _random_steps(card, dg, int(q.shape[0]), Wb)
+        for fs, anchor in ((False, "end"), (True, "inside")):
+            _trace_check(dg, _trace_inputs(card, dg, q, lengths, Wb, rng,
+                                           steps, anchor), Wb, fs)
+        seen.append(plan["placement"])
+    assert seen == ["smem", "rings-global"]
+
+
+def test_seed_register_body_placements(card):
+    """B8's rings in shared memory and in the block's global slab: the
+    narrowest corridor width that gives each on a wide ring, windowed and
+    not."""
+    from poasta_tpu_torch.ops import seed as sd
+
+    flat, dg, q, lengths = _wide_ring_case(card, 73)
+    fs, end_ok, _ = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                            dg.n_nodes_padded)
+    seen = []
+    for target in ("smem", "rings-global"):
+        Wb = _widths_for(dg.window, lambda w: _seed_side(dg.window, w),
+                         target)[0]
+        plan = sd.seed_plan(dg.window, Wb)
+        _check_reg_plan(plan, dg.window, Wb, _seed_side(dg.window, Wb))
+        rng, steps = _random_steps(card, dg, int(q.shape[0]), Wb)
+        for cap, ranges in ((64, "all"), (0, "wide")):
+            inp = _seed_inputs(card, dg, lengths, Wb, rng, steps, ranges)
+            _seed_check(dg, q, lengths, *inp, fs, end_ok, Wb, cap)
+        seen.append(plan["placement"])
+    assert seen == ["smem", "rings-global"]
