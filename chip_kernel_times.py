@@ -62,11 +62,30 @@ events, median of 5 after a warm-up:
   and B17 under the two-piece costs on the reads cut by up to 3 kb at the
   end, at drifting windows of ub 3,000 (Wb 6,528, past 6,144).
 
+* the decode ``trace_decode`` at the inputs the same two batches give it
+  (64 uniform reads at Wb 1,024; the pangenome's second batch, 64 reads at
+  Wb 256 over 50,002 ranks, P 2), with each read's step count, the longest
+  read's, and its insertion steps;
+* a latency probe: one thread chasing a random cyclic permutation through
+  a 1 MB array (L2) and a 1 GiB array (device memory), loads that skip L1,
+  and a 16 KB array through L1, in ns a hop; and one thread walking each
+  decode shape's planes as the decode does, down one rank's plane a hop
+  (B x Wb x 4 bytes) through all of them, then on to the next 128-byte
+  line.  The decode's chain floor is its longest read's steps times the
+  device-memory hop: the random hop (most hops miss the TLB) gives an
+  upper estimate, the plane-stride hop (a 2 MB page serves several ranks)
+  the decode's own.
+
 Each line carries a checksum of the kernel's output, so two trees can be
 seen to compute the same rows, the rows of both templates their launch
 plan, and the card's name and power limit.  The build's register counts
 are printed first.  Needs one card; imports no JAX.  Only names that the
 unpacked parent's ``chip_smoke.py`` also has are imported from it.
+
+    python3 chip_kernel_times.py decode
+
+times the decode and runs the probe alone (parent against change: copy
+this script into the unpacked parent and run it from each root in turn).
 """
 
 import os
@@ -81,8 +100,185 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # reads cut by up to 3 kb at the end, 6,528 (past 6,144).
 ROWS_B1_UB, ROWS_B17_UB = 11000, 3000
 
+# The latency probe: one thread follows next[i] `hops` times from where the
+# last launch stopped (so no launch walks addresses an earlier one brought
+# into a cache), each load skipping L1 (ld.global.cg: an L2 or
+# device-memory round trip) or, with `nc`, through it as the decode's
+# loads go (ld.global.nc); built with nvcc into build/ beside the port's
+# kernels.
+CHASE_SRC = r"""
+extern "C" __global__ void chase(const int* __restrict__ next,
+                                 long long hops, int nc, int* at) {
+    int i = *at;
+    if (nc)
+        for (long long h = 0; h < hops; ++h) i = __ldg(next + i);
+    else
+        for (long long h = 0; h < hops; ++h) i = __ldcg(next + i);
+    *at = i;
+}
+extern "C" int chase_launch(const int* next, long long hops, int nc,
+                            int* at, void* stream) {
+    chase<<<1, 1, 0, (cudaStream_t)stream>>>(next, hops, nc, at);
+    return (int)cudaGetLastError();
+}
+"""
 
-def main() -> int:
+
+def chase_ns(nbytes, hops, card, nc=False, stride=0):
+    """ns a hop of one thread chasing a random cyclic permutation through an
+    int32 array of ``nbytes`` (``nc``: through L1), or with ``stride`` (a
+    multiple of 128 bytes) down the array a stride a hop, from its last
+    stride to the next 128-byte line of the first: median of 3 after a
+    warm-up, each launch going on where the one before stopped."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    import torch
+
+    from poasta_tpu_torch.utils import build
+
+    out = os.path.join(REPO, "build", "chase-" + hashlib.sha256(
+        CHASE_SRC.encode()).hexdigest()[:12])
+    lib_path = os.path.join(out, "libchase.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(out, exist_ok=True)
+        src = os.path.join(out, "chase.cu")
+        with open(src, "w") as fh:
+            fh.write(CHASE_SRC)
+        subprocess.run([build.nvcc_path(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", lib_path, src],
+                       check=True, timeout=300)
+    lib = ctypes.CDLL(lib_path)
+    lib.chase_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    n = nbytes // 4
+    if stride:
+        S = stride // 4
+        n -= n % S
+        idx = torch.arange(n, dtype=torch.int32, device="cuda")
+        nxt = torch.where(idx >= S, idx - S, n - S + (idx + 32) % S)
+        del idx
+    else:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(nbytes)
+        perm = torch.randperm(n, generator=gen, device="cuda")
+        nxt = torch.empty(n, dtype=torch.int32, device="cuda")
+        nxt[perm] = torch.roll(perm, -1).to(torch.int32)  # one cycle
+        del perm
+    at = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if lib.chase_launch(nxt.data_ptr(), hops, int(nc), at.data_ptr(),
+                            stream):
+            raise RuntimeError("chase launch failed")
+
+    from chip_smoke import _time_ms
+
+    run()
+    ms = statistics.median(_time_ms(run, 1) for _ in range(3))
+    ns = ms * 1e6 / hops
+    walk = f"a stride of {stride} B down it" if stride else "random"
+    print(f"[probe] {4 * n} B array, {hops} dependent loads ({walk}) "
+          f"{'through L1 (nc)' if nc else 'skipping L1 (cg)'}: {ns:.1f} ns "
+          f"a hop ({ms:.3f} ms)  [{card}]", flush=True)
+    return ns
+
+
+def decode_times(dev, card):
+    """The decode at the inputs a batch of 64 uniform reads and the
+    pangenome's second semi-global batch give it, beside the latency
+    probe's chain floor."""
+    import torch
+
+    from chip_smoke import (
+        PAN_BATCH,
+        _time_ms,
+        pangenome_workload,
+        uniform_workload,
+    )
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        EndsFree,
+        GapAffine,
+        included,
+    )
+    from poasta_tpu_torch.ops import trace as trace_mod
+
+    costs = GapAffine(4, 2, 6)
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    captured = {}
+    launch = trace_mod._launch_decode
+
+    def keep(name):
+        # the widest call of the batch (the last such)
+        def rec(ptr, *walk, **kw):
+            if int(ptr.shape[1]) >= int(captured.get(name, (ptr,))[0]
+                                        .shape[1]):
+                captured[name] = (ptr, walk)
+            return launch(ptr, *walk, **kw)
+        return rec
+
+    graph, _, reads = uniform_workload(costs)
+    with mock.patch.object(trace_mod, "_launch_decode", keep("global")):
+        m = BatchMapper(graph, costs, device=dev)
+        m.DENSE_TABLE_BUDGET = 0  # the banded route, as the CLI's batches
+        m.align_batch(reads[:PAN_BATCH])
+    pan_graph, pan_reads = pangenome_workload()
+    m = BatchMapper(pan_graph, costs, device=dev, aln_type=semi)
+    m.align_batch(pan_reads[:PAN_BATCH])  # the first batch learns the rates
+    with mock.patch.object(trace_mod, "_launch_decode", keep("anchored")):
+        m.align_batch(pan_reads[PAN_BATCH:2 * PAN_BATCH])
+    del m
+
+    dram_ns = chase_ns(1 << 30, 100_000, card)
+    chase_ns(1 << 20, 200_000, card)
+    chase_ns(1 << 14, 200_000, card, nc=True)
+    for name in ("global", "anchored"):
+        ptr, walk = captured.pop(name)
+        Np, B, Wb = (int(n) for n in ptr.shape)
+        P = int(walk[0].shape[0]) // Np
+        plane_ns = chase_ns(ptr.numel() * 4, 20_000, card, nc=True,
+                            stride=B * Wb * 4)
+        ops = trace_mod.trace_decode(ptr, *walk)[0]
+        per_read = (ops != 0).sum(dim=1)
+        longest = int(per_read.max())
+        ins = int(((ops & 15) == trace_mod.OP_INS).sum())
+        floor_ms = longest * plane_ns * 1e-6
+        print(f"[times] decode {name}: {B} reads, Wb {Wb}, {Np} ranks, P {P}, "
+              f"t_max {walk[-1]}, {int(walk[-2].sum())} active; steps "
+              f"{int(per_read.sum())}, the longest read's {longest}, "
+              f"insertion steps {ins}; chain floor {longest} x "
+              f"{plane_ns:.1f} ns (plane stride) = {floor_ms:.3f} ms, "
+              f"{longest} x {dram_ns:.1f} ns (random) = "
+              f"{longest * dram_ns * 1e-6:.3f} ms  [{card}]", flush=True)
+        if hasattr(trace_mod, "decode_plan"):
+            print(f"[times] decode {name} plan "
+                  f"{trace_mod.decode_plan(B, P)}", flush=True)
+
+        def fn():
+            return launch(ptr, *walk)[0]
+        out = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ops):
+            raise AssertionError(f"decode {name}: step words differ from "
+                                 "trace_decode's")
+        ts = [_time_ms(fn, 1) for _ in range(5)]
+        med = statistics.median(ts)
+        print(f"[times] decode {name}: median {med:.3f} ms of "
+              f"{[round(t, 3) for t in ts]}, {med * 1e6 / longest:.1f} ns a "
+              f"step of the longest read, {med / floor_ms:.2f}x the "
+              f"plane-stride chain floor, "
+              f"{med / (longest * dram_ns * 1e-6):.2f}x the random one, "
+              f"checksum {int(out.long().sum())}  [{card}]", flush=True)
+        del ptr, walk, ops
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -137,6 +333,9 @@ def main() -> int:
             print(f"[build] {entry}: {line.split(':', 1)[1].strip()}",
                   flush=True)
 
+    if argv[1:] == ["decode"]:
+        decode_times(dev, card)
+        return 0
     costs = GapAffine(4, 2, 6)
     graph, seqs, reads = uniform_workload(costs)
     captured = {}
@@ -411,8 +610,10 @@ def main() -> int:
            f"{prep['margin']}, S {S}, uncapped, plan "
            f"{plan(cf.VARIANT_DRIFT_2P, dg, prep, qpad)}",
            lambda: cf.drift_end_rows_2p(dg, qpad, nbs, costs2p, prep, 0))
+    del captured
+    decode_times(dev, card)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

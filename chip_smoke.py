@@ -36,7 +36,8 @@ Phase 6 drives alignment, the second main path:
   read through the native host backtrace);
 * 6c times the bench's hybrid config, ``align_batch`` on 32 uniform reads;
 * 6d holds B18 and the decode against their plain versions at the inputs
-  one 6b batch gave them;
+  one 6b batch gave them, and prints the decode's steps and its longest
+  read's (the chain's floor counts those);
 * 6e aligns reads of a 45k-rank graph (past the JAX package's 1 MiB trace
   gate) on the default route, and again with ``POASTA_DEVICE_TRACE=0``:
   alignments must be equal, and every read traced on the device; the B18
@@ -89,9 +90,10 @@ every batch is traced from its end states (B18 with ``free_start``):
 * 8c two reads of 150 and 300 bases on a 3,000-base graph of the same
   shape (seeding forced by ``POASTA_SEED=all``) under both CLI spans
   against the exact A* engine under Dijkstra;
-* 8d holds B7, B8 and B18 with ``free_start`` against their plain versions
-  at the inputs 8b gave them (B8 and B18 on 8 reads of their calls: the
-  plain versions take about a millisecond a rank whatever the batch).
+* 8d holds B7, B8, B18 with ``free_start`` and the decode against their
+  plain versions at the inputs 8b gave them (B8 and B18 on 8 reads of
+  their calls: the plain versions take about a millisecond a rank
+  whatever the batch; the decode on the whole widest call).
 
 Phase 9 drives two-piece costs under the global span, the fifth main path,
 with ``GapAffine2Piece(4, 2, 8, 1, 24)`` (``poasta align -n 4 -g 8,24 -e
@@ -397,7 +399,7 @@ TRACE_OPS = 9 + 2 + 4 + 2 + 6
 # Per predecessor row after the first: a min each for M and D; with the
 # argmin (B18) a compare, a select and a min each.
 PRED_OPS, TRACE_PRED_OPS = 2, 6
-# One decode step, from trace_decode_kernel's body: the lane (subtract, two
+# One decode step, from the walk's rule (decode_plain): the lane (subtract, two
 # clamps), five fields unpacked (an and, four shift-and pairs), the action
 # by state (2), the hop test (3), the op code (3), the next rank (2
 # selects), consumes (2), the step word (shift, or), done (3), the next
@@ -920,14 +922,16 @@ def main() -> int:
          "replaces": B18_REPLACES, "launches": lasagna["launches"][2],
          **trace_results["B18"],
          "past_the_gate_6e": trace_results["B19"]},
-        {"name": "trace_decode_kernel", "route": "cuda",
-         "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
-         "replaces": DECODE_REPLACES, "launches": lasagna["launches"][3],
+        {"name": "decode_warp_kernel", "route": "cuda",
+         "source": "poasta_tpu_torch/csrc/decode_kernel.cu",
+         "replaces": DECODE_REPLACES,
+         "launches": lasagna["launches"][3] + pan_launches["decode"],
          "launches_by_call": {
              "lasagna align uniform": lasagna["launches"][3],
              "lasagna align -m semi-global pangenome":
                  pan_launches["decode"]},
-         **trace_results["decode"]},
+         **trace_results["decode"],
+         "pangenome_8d": pan_results["decode"]},
         {"name": "full_fill_kernel<bounded, ends>", "route": "cuda",
          "source": f"poasta_tpu_torch/csrc/{full}", "replaces": B7_REPLACES,
          "launches": pan_launches["B7"], **pan_results["B7"]},
@@ -1016,6 +1020,28 @@ def _trace_pair(dg, inp, costs, Wb, verified, t_max):
             (lambda: tr.trace_fill_plain(dg, **inp, costs=costs, Wb=Wb)),
             (lambda: tr.trace_decode(ptr, *walk)),
             (lambda: tr.decode_plain(ptr, *walk)))
+
+
+def _decode_fields(dec_k, walk, card):
+    """The decode's bound and launch shape on the inputs ``dec_k`` walks
+    (``walk``: its arguments after the planes): one dependent chain a
+    read, its steps counted from this run's step words (the longest
+    read's steps set the chain's floor)."""
+    from poasta_tpu_torch.ops import trace as tr
+
+    pred_ranks, wstarts, active = walk[0], walk[1], walk[-2]
+    B, Np = (int(n) for n in wstarts.shape)
+    ops = dec_k()[0]
+    per_read = (ops != 0).sum(dim=1)
+    steps, longest = int(per_read.sum()), int(per_read.max())
+    plan = tr.decode_plan(B, int(pred_ranks.shape[0]) // Np)
+    print(f"[kernels] decode: {steps} steps over {int(active.sum())} of {B} "
+          f"reads, the longest read's {longest}; plan {plan}  [{card}]",
+          flush=True)
+    return {**_bound(DECODE_BYTES * steps, DECODE_OPS * steps),
+            "steps": steps, "longest_read_steps": longest,
+            "warps_per_block": plan["warps_per_block"],
+            "reads_per_warp": plan["reads_per_warp"]}
 
 
 def write_inputs(graph, reads, directory):
@@ -1214,10 +1240,7 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
         g_dg.n_nodes * Wb + 1, tilted=True, per_pred=TRACE_PRED_OPS,
         per_rank=TRACE_OPS, table_cols=n_reads),
         **fill_fields(tr.trace_plan(g_dg.window, Wb)))
-    # decode: one dependent chain per read; its steps are counted from this
-    # run's step words
-    steps = int((dec_k()[0] != 0).sum())
-    results["decode"].update(_bound(DECODE_BYTES * steps, DECODE_OPS * steps))
+    results["decode"].update(_decode_fields(dec_k, walk, card))
 
     _phase_done("6c-6d hybrid, trace kernels at the main path's shapes")
     # ---- 6e. a graph past the JAX package's trace gate ---------------------
@@ -1665,10 +1688,10 @@ def ends_free_phases(card, dev, costs, graph, seqs):
 
 
 def pangenome_phases(card, dev, costs):
-    """Phases 8a-8d; returns (kernel comparisons of B7, B8 and B18 with
-    ``free_start``, their launches in the CLI run of 8b, the workload, and
-    what phase 11b reuses: the graph's device layout, 8a's uncapped B7
-    triple of its batch, the cap of 8b's B7 call)."""
+    """Phases 8a-8d; returns (kernel comparisons of B7, B8, B18 with
+    ``free_start`` and the decode, their launches in the CLI run of 8b, the
+    workload, and what phase 11b reuses: the graph's device layout, 8a's
+    uncapped B7 triple of its batch, the cap of 8b's B7 call)."""
     import tempfile
 
     import numpy as np
@@ -1768,7 +1791,7 @@ def pangenome_phases(card, dev, costs):
     per_batch, captured, on_main_path = [], {}, [False]
     real_ef = mapper_mod.BatchMapper._align_batch_ends_free
     real = {"B7": cf._launch_bounded_ends, "B8": sd._launch_seed,
-            "B18": tr._launch_trace}
+            "B18": tr._launch_trace, "decode": tr._launch_decode}
 
     def rec_ef(self, *args, **kwargs):
         out = real_ef(self, *args, **kwargs)
@@ -1801,7 +1824,8 @@ def pangenome_phases(card, dev, costs):
                            rec_ef), \
             mock.patch.object(cf, "_launch_bounded_ends", keep("B7")), \
             mock.patch.object(sd, "_launch_seed", keep("B8")), \
-            mock.patch.object(tr, "_launch_trace", keep("B18")):
+            mock.patch.object(tr, "_launch_trace", keep("B18")), \
+            mock.patch.object(tr, "_launch_decode", keep("decode", 2)):
         zero()
         on_main_path[0] = True
         dev_s, dev_gaf = cli("dev.gaf")
@@ -1967,7 +1991,23 @@ def pangenome_phases(card, dev, costs):
         per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8),
         **fill_fields(tr.trace_plan(g_dg.window, Wb)))
     results["B18"]["reads_compared"] = 8
-    _phase_done("8d B7, B8, B18 free_start at the main path's shapes")
+
+    # the decode at the widest call's inputs (the planes of that call's
+    # B18, walked from the reads' end states)
+    _, (ptr, *walk), _ = captured["decode"]
+    print(f"[trace] pangenome decode main path: {int(ptr.shape[1])} reads, "
+          f"Wb {int(ptr.shape[2])}, t_max {walk[-1]}", flush=True)
+    def dec_k():
+        return tr.trace_decode(ptr, *walk)
+
+    results["decode"] = _compare(
+        "decode pangenome main path", dec_k,
+        lambda: tr.decode_plain(ptr, *walk), card, reps=5)
+    results["decode"].update(_decode_fields(dec_k, walk, card))
+    del ptr, dec_k
+    captured.pop("decode")
+    _phase_done("8d B7, B8, B18 free_start, the decode at the main path's "
+                "shapes")
     # phase 11b runs B4 over this graph on 8a's batch
     return results, launches, (graph, reads), {
         "dg": dg, "flat": flat, "batch_exact": exact, "b7_cap": b7_cap}

@@ -37,8 +37,10 @@ from ..ops.cuda_fill import (
     prepare_banded_drift,
 )
 from ..ops.dp_rows import INF
+from ..utils.device import check_mesh
 from .costs import EndsFree
 from .wavefront import (
+    NODE_BUCKET,
     DeviceGraph,
     _round_up,
     dp_fill_scores,
@@ -289,9 +291,11 @@ class BandedScorer:
     Usage: ``BandedScorer(flat, costs, aln_type=span).scores(qshift,
     lengths)`` with the batch from :func:`..wavefront.pack_queries`.
     ``device``: where the graph is laid out when no ``dg`` is given (None:
-    the card).  ``aln_type``: None or Global for global alignment; an
-    ``EndsFree`` span scores through the ends-free fills; with two-piece
-    costs every batch takes the bounded full fill under the capped ladder.
+    the card), its rank rows padded to a multiple of ``node_bucket``;
+    ``mesh``: None (:func:`..utils.device.check_mesh`).  ``aln_type``: None
+    or Global for global alignment; an ``EndsFree`` span scores through the
+    ends-free fills; with two-piece costs every batch takes the bounded full
+    fill under the capped ladder.
     """
 
     # modelled fixed cost of one fill, in cells: biases the tier choice
@@ -302,14 +306,16 @@ class BandedScorer:
     DRIFT_MIN_SPREAD = 512
 
     def __init__(self, flat: FlatGraph, costs,
-                 dg: Optional[DeviceGraph] = None, device=None,
-                 aln_type=None):
+                 node_bucket: int = NODE_BUCKET, mesh=None,
+                 dg: Optional[DeviceGraph] = None, aln_type=None, *,
+                 device=None):
+        check_mesh(mesh)
         self.flat = flat
         self.costs = costs
         self.aln_type = aln_type
         self.ends_free = isinstance(aln_type, EndsFree)
         self.dg = dg if dg is not None \
-            else DeviceGraph.build(flat, device=device)
+            else DeviceGraph.build(flat, node_bucket, device=device)
         # window layouts + their device tables, per (n_min, n_max, ub, L)
         # (shared) or ("drift", n_min, n_max, ub, L); plus the span's
         # static end_ok mask and the per-profile ("fullfill", ...) marks

@@ -13,7 +13,7 @@ working set is O(B·W·L), not O(B·N·L).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,7 @@ from ..ops.cuda_fill import (
 )
 from ..ops.dp_rows import INF, row_update
 from ..ops.dp_rows_2p import row_update_2p
-from ..utils.device import resolve_device
+from ..utils.device import check_engine, check_mesh, placed_device
 from .alignment import AlignedPair, Alignment
 from .costs import EndsFree
 
@@ -135,13 +135,14 @@ class DeviceGraph:
     window: int  # ring size W = liveness-colouring peak
     n_nodes_padded: int
     n_nodes: int
-    pred_ranks_np: np.ndarray  # (Np, P) predecessor ranks (host)
-    pred_valid_np: np.ndarray  # (Np, P) valid mask (host)
-    end_rank_i: int
-    pred_slots_flat: torch.Tensor  # (Np*P,) int32
-    pred_valid_flat: torch.Tensor  # (Np*P,) int32 0/1
-    meta: torch.Tensor  # (4,) int32 [n_nodes, end_rank, 0, 0]
-    write_slots: torch.Tensor  # (Np,) int32 ring slot each rank writes
+    # the defaults are the reference's (built graphs set every field)
+    pred_ranks_np: np.ndarray = None  # (Np, P) predecessor ranks (host)
+    pred_valid_np: np.ndarray = None  # (Np, P) valid mask (host)
+    end_rank_i: int = 0
+    pred_slots_flat: torch.Tensor = None  # (Np*P,) int32
+    pred_valid_flat: torch.Tensor = None  # (Np*P,) int32 0/1
+    meta: torch.Tensor = None  # (4,) int32 [n_nodes, end_rank, 0, 0]
+    write_slots: torch.Tensor = None  # (Np,) int32 ring slot each rank writes
 
     @property
     def device(self) -> torch.device:
@@ -176,13 +177,17 @@ class DeviceGraph:
         )
 
     @staticmethod
-    def build(flat: FlatGraph, device=None) -> "DeviceGraph":
+    def build(flat: FlatGraph, node_bucket: int = NODE_BUCKET,
+              place_on_device: bool = True, *,
+              device=None) -> "DeviceGraph":
         """Lay ``flat`` out on ``device`` (None: the card; raises without
-        one)."""
-        device = resolve_device(device)
+        one).  Rank rows are padded to a multiple of ``node_bucket``.
+        ``place_on_device=False`` keeps the arrays on the host (CPU
+        tensors; see :func:`..utils.device.placed_device`)."""
+        device = placed_device(device, place_on_device)
         n = flat.n_nodes
         P = _next_pow2(max(1, flat.max_in_degree))
-        np_nodes = _round_up(n, NODE_BUCKET)
+        np_nodes = _round_up(n, node_bucket)
 
         # a rank's row stays live until its last reader (max successor
         # rank); greedy interval colouring gives W = peak live rows
@@ -211,17 +216,21 @@ class DeviceGraph:
                                        device)
 
 
-def pack_queries(queries, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def pack_queries(queries, pad_to: Optional[int] = None,
+                 place_on_device: bool = True, *,
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack byte-string reads into a padded (B, L) int32 batch + (B,)
     lengths on ``device`` (None: the card; raises without one).
 
     Column ``j`` holds ``q[j-1]`` (offset j consumes query char j-1);
     column 0 and the padding are 0, which matches no nucleotide symbol.
-    ``L`` is rounded up to a multiple of 128.
+    ``L`` is the longest read, or ``pad_to`` if longer, plus one, rounded
+    up to a multiple of 128.  ``place_on_device=False`` is taken beside
+    ``device="cpu"`` only (:func:`..utils.device.placed_device`).
     """
-    device = resolve_device(device)
+    device = placed_device(device, place_on_device)
     maxlen = max((len(q) for q in queries), default=0)
-    L = _round_up(maxlen + 1, 128)
+    L = _round_up(max(pad_to or 0, maxlen) + 1, 128)
     arr = np.zeros((len(queries), L), dtype=np.int32)
     lengths = np.zeros((len(queries),), dtype=np.int32)
     for b, q in enumerate(queries):
@@ -562,7 +571,8 @@ def backtrace_dense_ends_free(flat: FlatGraph, M: np.ndarray, I: np.ndarray,
 
 def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
                    lengths: torch.Tensor, costs, free_start: bool = False,
-                   free_end: bool = False) -> torch.Tensor:
+                   free_end: bool = False,
+                   engine: str = "auto") -> torch.Tensor:
     """(B,) optimal alignment scores by the full-width fill, under one- or
     two-piece costs: global, or with a free graph begin (every real rank
     may start at offset 0) and/or a free graph end (every real rank may
@@ -571,8 +581,10 @@ def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
     plain PyTorch version does.  Free graph ends run the bounded fill under
     an end mask with jlo = n (:func:`..ops.cuda_fill.free_end_mask`), as
-    ``poasta_tpu`` does past its kernels' size budget.
+    ``poasta_tpu`` does past its kernels' size budget.  ``engine``:
+    "auto" or "pallas" (:func:`..utils.device.check_engine`).
     """
+    check_engine(engine)
     if free_start or free_end:
         return free_fill_scores(dg, qshift, lengths, costs, free_start,
                                 free_end)
@@ -602,7 +614,7 @@ def query_end_lo(aln_type: EndsFree, lengths_np: np.ndarray,
 
 def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
                             lengths: torch.Tensor, n_nodes_padded: int,
-                            two_piece: bool = False):
+                            two_piece: bool = False, with_jlo: bool = True):
     """Lower an ``EndsFree`` span to what the bounded fills take:
     ``(free_start, end_ok, jlo)`` on ``lengths``' device.
 
@@ -613,7 +625,7 @@ def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
       excluded by kind: the virtual end rank (distance 0) passes every
       bound but excluded(0).
     * ``jlo``: (B,) int32, :func:`query_end_lo` (``two_piece``: the
-      two-piece engines' rule).
+      two-piece engines' rule), or None with ``with_jlo=False``.
     ``qry_free_begin`` is parsed and ignored, as in the exact engine.
     """
     if not isinstance(aln_type, EndsFree):
@@ -629,16 +641,20 @@ def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
         ok = (de < val).astype(np.int32)
     end_ok = np.zeros(n_nodes_padded, dtype=np.int32)
     end_ok[:n] = ok
-    jlo = query_end_lo(aln_type, lengths.cpu().numpy(), two_piece)
     dev = lengths.device
+    jlo = None
+    if with_jlo:
+        jlo = torch.as_tensor(
+            query_end_lo(aln_type, lengths.cpu().numpy(), two_piece),
+            device=dev)
     return (aln_type.graph_free_begin[0] == "unbounded",
-            torch.as_tensor(end_ok, device=dev),
-            torch.as_tensor(jlo, device=dev))
+            torch.as_tensor(end_ok, device=dev), jlo)
 
 
 def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
                              qshift: torch.Tensor, lengths: torch.Tensor,
                              costs, aln_type: EndsFree,
+                             engine: str = "auto", mesh=None,
                              max_run: int = 0) -> torch.Tensor:
     """(B,) optimal ends-free scores by the full-width bounded fill, with
     included/excluded/unbounded bounds on the graph and query free ends,
@@ -646,8 +662,11 @@ def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
     (scores are then upper bounds; see ``aligner.banded.run_capped_ladder``).
 
     On a CUDA tensor the bounded fill kernel runs (or raises); on a CPU
-    tensor its plain PyTorch version does.
+    tensor its plain PyTorch version does.  ``engine`` and ``mesh``: see
+    :func:`..utils.device.check_engine` and ``check_mesh``.
     """
+    check_engine(engine)
+    check_mesh(mesh)
     two_piece = costs.is_two_piece
     free_start, end_ok, jlo = ends_free_device_params(
         flat, aln_type, lengths, dg.n_nodes_padded, two_piece)
@@ -658,7 +677,9 @@ def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
 
 def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
                                 qshift: torch.Tensor, lengths: torch.Tensor,
-                                costs, aln_type: EndsFree, max_run: int = 0):
+                                costs, aln_type: EndsFree,
+                                engine: str = "auto", mesh=None,
+                                max_run: int = 0):
     """(scores, end_ranks, end_offsets), each (B,) int32, for an ends-free
     span by the full-width bounded fill.
 
@@ -669,8 +690,11 @@ def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
     :func:`dp_fill_scores_ends_free`; one- or two-piece costs.
 
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
-    plain PyTorch version does.
+    plain PyTorch version does.  ``engine`` and ``mesh`` as in
+    :func:`dp_fill_scores_ends_free`.
     """
+    check_engine(engine)
+    check_mesh(mesh)
     two_piece = costs.is_two_piece
     free_start, end_ok, jlo = ends_free_device_params(
         flat, aln_type, lengths, dg.n_nodes_padded, two_piece)

@@ -12,10 +12,13 @@ the host A* engine per read.
 Ported: ``-m global|semi-global|ends-free`` (semi-global: the whole query
 against free graph ends, the read-mapping span; ends-free: every end
 free), ``--engine wavefront|exact`` and the host-only round-robin
-``--shard-index/--shard-count``.  ``--distributed`` and a ``--mesh`` other
-than ``auto``/``off``/``1`` exit with status 1.  Under a span other than
-global the exact engine runs the Dijkstra heuristic: the minimum-gap-cost
-heuristic is not admissible when ends are free.
+``--shard-index/--shard-count``.  ``--distributed`` and a ``--mesh`` that
+needs more than one device exit with status 1; every spec the reference
+maps to no mesh on one device runs single-device (``auto``, ``off``,
+``none``, ``1`` in any case and spacing, and ``DP,SP`` with DP*SP = 1).
+Under a span other than global the exact engine runs the Dijkstra
+heuristic: the minimum-gap-cost heuristic is not admissible when ends are
+free.
 """
 
 from __future__ import annotations
@@ -23,18 +26,38 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ..utils.device import NoDeviceError
+from ..utils.device import NOT_PORTED, NoDeviceError
 from ..utils.errors import PoastaError
 
-NOT_PORTED = "not ported yet"
+
+def mesh_devices(spec: str):
+    """The devices a ``--mesh`` spec asks for, as the reference's
+    ``parse_mesh_spec`` reads it on one device: 1 for every spec it maps
+    to no mesh there (``auto``, ``off``, ``none``, ``1``, and ``DP[,SP]``
+    with DP*SP = 1), else DP*SP; None for a spec it cannot parse or a
+    size below 1."""
+    spec = spec.strip().lower()
+    if spec in ("auto", "off", "1", "none"):
+        return 1
+    parts = spec.split(",")
+    try:
+        dp = int(parts[0])
+        sp = int(parts[1]) if len(parts) > 1 else 1
+    except ValueError:
+        return None
+    return dp * sp if dp >= 1 and sp >= 1 else None
 
 
 def unported_option(args):
     """The message for an option this port does not carry yet, or None."""
     if args.distributed:
         return f"--distributed: {NOT_PORTED}"
-    if args.mesh.strip().lower() not in ("auto", "off", "1"):
-        return f"--mesh {args.mesh}: {NOT_PORTED} (one card: auto, off or 1)"
+    n = mesh_devices(args.mesh)
+    if n is None:
+        return f"bad --mesh spec {args.mesh!r} (use auto|off|DP[,SP])"
+    if n != 1:
+        return (f"--mesh {args.mesh}: {NOT_PORTED} (one card: a spec of one "
+                "device, such as auto, off, none, 1 or 1,1)")
     return None
 
 
@@ -242,9 +265,10 @@ def build_parser():
                         "is the first card, an error when PyTorch sees "
                         "none; 'cpu' runs the kernels' plain PyTorch "
                         "versions (the one flag the reference CLI lacks)")
-    a.add_argument("--mesh", default="auto", metavar="auto|off|1",
-                   help="one card only: auto, off and 1 all run "
-                        "single-device")
+    a.add_argument("--mesh", default="auto", metavar="auto|off|DP[,SP]",
+                   help="one card only: auto, off, none, 1 and DP,SP with "
+                        "DP*SP = 1 all run single-device; a mesh of more "
+                        f"devices is {NOT_PORTED}")
     a.add_argument("--distributed", action="store_true",
                    help=f"multi-process dp ({NOT_PORTED})")
     a.add_argument("--coordinator-address", default=None,

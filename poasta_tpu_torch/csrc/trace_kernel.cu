@@ -1,11 +1,11 @@
-// Device traceback: the pointer-emitting corridor refill and the decode.
+// Device traceback: the pointer-emitting corridor refill (the decode that
+// walks its planes is decode_kernel.cu).
 //
 // trace_fill_kernel replaces poasta_tpu/ops/pallas_trace.py:_trace_kernel
 // (launched through _trace_exec / pallas_trace_align) and folds in its
 // HBM-streamed twin _trace_kernel_big: per-rank tables are read from global
-// memory at any graph size.  trace_decode_kernel replaces the XLA
-// fori_loop of _decode_exec.  Same inputs, same pointer planes, anchor
-// values and step words, bit for bit.
+// memory at any graph size.  Same inputs, same pointer planes and anchor
+// values, bit for bit.
 //
 // Fill, per read and per rank r, over a window of Wb lanes starting at the
 // read's own 128-aligned offset w = wstarts[b, r] (monotone, steps of 0 or
@@ -86,12 +86,6 @@
 // trace's 64 reads x 50,002 ranks x 256 lanes (2 warps a block) take 59.1
 // ms against 81.4, 1.2 us a rank (chip_kernel_times.py, both in one call
 // on an H100).
-//
-// Decode: one thread per read walks its pointer chain from the anchor,
-// one dependent word load per step (at most t_max steps), and writes
-// rank<<4 | op step words; the words after the walk stops stay 0.  It is
-// latency-bound (~n + K dependent loads per read); a thread per read keeps
-// the whole chain in one launch instead of a launch per step.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -327,48 +321,6 @@ trace_fill_kernel(TRACE_PARAMS) {
     }
 }
 
-__global__ void trace_decode_kernel(
-    const int* __restrict__ ptr,         // (Np, B, Wb)
-    const int* __restrict__ pred_ranks,  // (Np*P,)
-    const int* __restrict__ wstarts,     // (B, Np)
-    const int* __restrict__ anchor_r, const int* __restrict__ anchor_j,
-    const int* __restrict__ active,      // (B,) 0/1
-    int B, int Np, int Wb, int P, int end_rank, int t_max,
-    int* __restrict__ ops,               // (B, t_max), zeroed by the caller
-    int* __restrict__ done_out) {        // (B,) 0/1
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    int r = anchor_r[b];
-    int j = anchor_j[b];
-    int st = 0;  // 0 in M, 1 in D, 2 in I
-    bool done = active[b] == 0;
-    int* out = ops + (long long)b * t_max;
-    const int* ws = wstarts + (long long)b * Np;
-    for (int t = 0; t < t_max && !done; ++t) {
-        const int lane = min(max(j - ws[r], 0), Wb - 1);
-        const int word = ptr[((long long)r * B + b) * Wb + lane];
-        const int msrc = word & 3;
-        const int mp = (word >> 2) & 31;
-        const int isrc = (word >> 7) & 1;
-        const int dsrc = (word >> 8) & 1;
-        const int dp = (word >> 9) & 31;
-        const bool is_hop = r == end_rank && t == 0;
-        const int act = st == 0 ? msrc : (st == 1 ? 1 : 2);
-        const int op = is_hop ? 4 : (act == 0 ? 1 : act == 1 ? 2
-                                     : act == 2 ? 3 : 0);
-        const bool diag_move = is_hop || act == 0;
-        const int new_r = diag_move ? pred_ranks[(long long)r * P + mp]
-                          : (act == 1 ? pred_ranks[(long long)r * P + dp] : r);
-        const bool consumes = !is_hop && (act == 0 || act == 2);
-        out[t] = (r << 4) | op;
-        done = act == 3 || new_r == 0;
-        st = diag_move ? 0 : (act == 1 ? dsrc : 2 * isrc);
-        j = consumes ? j - 1 : j;
-        r = new_r;
-    }
-    done_out[b] = done ? 1 : 0;
-}
-
 static cudaError_t trace_plan(int W, int Wb, PoastaPlan* plan) {
     if (Wb < 128 || Wb > 4096 || Wb % 128 || W <= 0)
         return cudaErrorInvalidValue;
@@ -412,17 +364,4 @@ extern "C" int poasta_trace_fill(
         symbols, pred_slots, pred_valid, wslots, qpad, wstarts, anchor_r,
         anchor_j, B, LQ, Np, n_nodes, end_rank, W, P, Wb, o, e, x,
         free_start, ptr, aval, gws, plan.global_ints, plan.mode);
-}
-
-extern "C" int poasta_trace_decode(
-    const int* ptr, const int* pred_ranks, const int* wstarts,
-    const int* anchor_r, const int* anchor_j, const int* active, int B, int Np,
-    int Wb, int P, int end_rank, int t_max, int* ops, int* done,
-    void* stream) {
-    const int threads = 128;
-    const int blocks = (B + threads - 1) / threads;
-    trace_decode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        ptr, pred_ranks, wstarts, anchor_r, anchor_j, active, B, Np, Wb, P,
-        end_rank, t_max, ops, done);
-    return (int)cudaGetLastError();
 }

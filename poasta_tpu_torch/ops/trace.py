@@ -18,7 +18,8 @@ certified exact scores:
    ``trace_fill_kernel``; on a CPU tensor it runs :func:`trace_fill_plain`.
 3. :func:`trace_decode` walks each verified read's pointer chain from the
    anchor and emits ``rank<<4 | op`` step words (CUDA:
-   ``trace_decode_kernel``; CPU: :func:`decode_plain`).
+   ``csrc/decode_kernel.cu``'s ``decode_warp_kernel``, a warp a read; CPU:
+   :func:`decode_plain`).
 4. :func:`replay_steps` turns step words into an ``ArrayAlignment``.
 
 :func:`trace_align` drives the width tiers 256 ... 4096.  The pointer
@@ -30,6 +31,7 @@ native engine's backtrace.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -402,6 +404,18 @@ def decode_plain(ptr: torch.Tensor, pred_ranks: torch.Tensor,
         st = torch.where(done, st, new_st)
         done = new_done
     return ops, done
+
+
+def decode_plan(B: int, P: int) -> dict:
+    """Launch shape of the decode kernel for B reads of pred field P:
+    ``warps_per_block``, ``reads_per_warp`` (1) and ``blocks`` (needs the
+    card)."""
+    lib = build.load()
+    outs = [ctypes.c_int() for _ in range(3)]
+    build.check(lib, lib.poasta_decode_plan(B, P, *map(ctypes.byref, outs)),
+                "poasta_decode_plan")
+    wpb, rpw, blocks = (o.value for o in outs)
+    return {"warps_per_block": wpb, "reads_per_warp": rpw, "blocks": blocks}
 
 
 def _launch_decode(ptr, pred_ranks, wstarts, anchor_r, anchor_j, end_rank,

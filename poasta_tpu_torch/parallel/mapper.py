@@ -30,6 +30,7 @@ from ..aligner.wavefront import (
 from ..ops.dp_rows import INF
 from ..ops.seed import seed_scores
 from ..ops.trace import trace_align, trace_enabled
+from ..utils.device import check_mesh
 
 
 class BatchMapper:
@@ -40,7 +41,8 @@ class BatchMapper:
     raises without one).  Scores come from the banded scorer (exact by
     verify-and-retry, the full-width fill as its last resort), under
     ``aln_type``: None or Global, or an ``EndsFree`` span.  ``costs``:
-    ``GapAffine`` or ``GapAffine2Piece``.
+    ``GapAffine`` or ``GapAffine2Piece``.  ``mesh``: None, as the one
+    card takes every batch (:func:`..utils.device.check_mesh`).
     Alignments of a global span come from dense tables and a host
     backtrace for small one-piece batches, and otherwise from the device
     traceback, with the native engine's banded backtrace for the reads the
@@ -64,8 +66,9 @@ class BatchMapper:
     # cells).  POASTA_SEED: "0" off, "all" every graph size, default auto.
     SEED_MIN_NODES = 8192
 
-    def __init__(self, graph, costs, device=None, batch_size: int = 64,
-                 aln_type=None):
+    def __init__(self, graph, costs, mesh=None, batch_size: int = 64,
+                 aln_type=None, *, device=None):
+        check_mesh(mesh)
         if aln_type is not None \
                 and not isinstance(aln_type, (Global, EndsFree)):
             raise TypeError(f"unknown alignment span {aln_type!r}")

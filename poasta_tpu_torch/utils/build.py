@@ -118,6 +118,8 @@ def _load() -> ctypes.CDLL:
     lib.poasta_trace_plan.restype = i
     lib.poasta_trace_fill.argtypes = [p] * 8 + [i] * 12 + [p, p, p, ll, p]
     lib.poasta_trace_fill.restype = i
+    lib.poasta_decode_plan.argtypes = [i] * 2 + [pi] * 3
+    lib.poasta_decode_plan.restype = i
     lib.poasta_trace_decode.argtypes = [p] * 6 + [i] * 6 + [p, p, p]
     lib.poasta_trace_decode.restype = i
     lib.poasta_seed_plan.argtypes = [i, i, pi, pi, pi, pll, pi, pi]

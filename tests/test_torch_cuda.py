@@ -190,14 +190,75 @@ def _trace_tier(card, g, reads, Wb):
     walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
             inp["anchor_j"], dg.end_rank_i,
             torch.as_tensor(verified, device=card), t_max)
+    _decode_held(ptr, walk)
+    return tr.trace_plan(dg.window, Wb), dg.window, int(verified.sum())
+
+
+def _decode_held(ptr, walk):
+    """The decode kernel against its plain version on the same planes (a
+    read a warp: at B not a multiple of the block's warps, the grid's last
+    block has empty warps); the wrapper's count moves once.  Returns the
+    kernel's ops and done."""
+    want = tr.decode_plain(ptr, *walk)
     before = tr.trace_decode.launches
-    ops, done = tr.trace_decode(ptr, *walk)
+    got = tr.trace_decode(ptr, *walk)
     torch.cuda.synchronize()
     assert tr.trace_decode.launches == before + 1
-    ops_p, done_p = tr.decode_plain(ptr, *walk)
-    assert torch.equal(ops, ops_p)
-    assert torch.equal(done, done_p)
-    return tr.trace_plan(dg.window, Wb), dg.window, int(verified.sum())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    return got
+
+
+def _decode_planes(card, seed, B, Wb, P, n=120, t_max=448):
+    """Random pointer planes on the card, as the trace fill lays them out:
+    every rank's predecessors lie below it (padding columns 0), window
+    starts step 0 or 128 a rank, pred columns below each rank's in-degree,
+    2% origin words;
+    anchors at the end rank or off it, inside their window or past either
+    edge; some reads inactive.  Returns the decode's arguments."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=card,
+                             dtype=torch.int32)
+
+    def unit(shape):
+        return torch.rand(shape, generator=gen, device=card)
+
+    Np = -(-n // 64) * 64
+    ranks = torch.arange(1, n, device=card).view(-1, 1)
+    lo = (ranks - 6).clamp(min=0)
+    pr = torch.zeros((Np, P), dtype=torch.int32, device=card)
+    pr[1:n] = (lo + (unit((n - 1, P)) * (ranks - lo)).long()).int()
+    deg = torch.ones((Np, 1, 1), dtype=torch.int32, device=card)
+    deg[1:n, 0, 0] = ints(1, P + 1, (n - 1,))
+    pr *= (torch.arange(P, device=card).view(1, -1) < deg.view(-1, 1)).int()
+    steps = unit((B, Np)) < 0.08
+    steps[:, 0] = False
+    ws = (steps.cumsum(1) * 128).int()
+    shape = (Np, B, Wb)
+    u = unit(shape)
+    msrc = (u > 0.6).int() + (u > 0.75).int() + (u > 0.98).int()
+    # the fill's columns point at real predecessors only
+    ptr = (msrc | ints(0, 1 << 20, shape) % deg << 2
+           | ints(0, 2, shape) << 7 | ints(0, 2, shape) << 8
+           | ints(0, 1 << 20, shape) % deg << 9)
+    ptr[n:] = 0
+    ar = torch.where(unit(B) < 0.7, n - 1, ints(0, n, (B,))).int()
+    aj = (ws[torch.arange(B, device=card), ar.long()]
+          + ints(-20, Wb + 60, (B,))).clamp(min=0).int()
+    return (ptr.contiguous(), pr.view(-1), ws.contiguous(), ar, aj, n - 1,
+            unit(B) < 0.85, t_max)
+
+
+@pytest.mark.parametrize("Wb", tr.TIER_WIDTHS)
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 64, 65, 1024])
+def test_decode_kernel_matches_plain_on_drawn_planes(card, B, Wb):
+    """At the warp and block edges and every tier width, P in {1, 2, 4, 8,
+    16, 32} across the grid: step words and done flags equal."""
+    P = (1, 2, 4, 8, 16, 32)[(B + Wb // 256) % 6]
+    ptr, *walk = _decode_planes(card, 1000 * B + Wb, B, Wb, P)
+    _decode_held(ptr, walk)
 
 
 @pytest.mark.parametrize("Wb", [256, 4096])
@@ -567,9 +628,7 @@ def test_anchored_trace_kernel_matches_plain(card, shape, Wb):
     walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
             inp["anchor_j"], dg.end_rank_i,
             torch.as_tensor(verified, device=card), t_max)
-    ops, done = tr.trace_decode(ptr, *walk)
-    ops_p, done_p = tr.decode_plain(ptr, *walk)
-    assert torch.equal(ops, ops_p) and torch.equal(done, done_p)
+    done = _decode_held(ptr, walk)[1]
     assert bool(done[torch.as_tensor(verified, device=card)].all())
 
 

@@ -236,6 +236,24 @@ def test_cli_exact_engine_runs_dijkstra_under_free_ends(tmp_path):
     assert out_p.read_text() == out_j.read_text()
 
 
+@pytest.mark.parametrize("spec", ["none", "NONE", "1,1", " Off "])
+def test_cli_single_device_mesh_specs_gaf_byte_equal(spec, tmp_path):
+    """Every ``--mesh`` spec the reference maps to no mesh on one device
+    runs: GAF byte-equal to ``--mesh off`` and to the reference CLI's."""
+    g, reads = _workload(seed=41, n_reads=4)
+    gfa, fa = _write_inputs(tmp_path, g, reads)
+    outs = {}
+    for name, main, argv in (
+            ("jax", jax_lasagna, ["--mesh", "off"]),
+            ("off", port_lasagna, ["--mesh", "off", "--device", "cpu"]),
+            ("spec", port_lasagna, ["--mesh", spec, "--device", "cpu"])):
+        out = tmp_path / f"{name}.gaf"
+        assert main(["align", gfa, fa, "-o", str(out), *argv]) in (0, None)
+        outs[name] = out.read_text()
+    assert len(outs["spec"].splitlines()) == len(reads)
+    assert outs["spec"] == outs["off"] == outs["jax"]
+
+
 @pytest.mark.parametrize("argv", [
     ["--distributed"],
     ["--mesh", "2"],

@@ -242,3 +242,148 @@ def test_pyproject_names_the_port_scripts():
     }
     assert project["optional-dependencies"]["torch"] == ["torch"]
     assert project["dependencies"] == ["jax", "numpy"]
+
+
+# The reference's public callables in the modules the port mirrors, less
+# the mesh helpers (the multi-card path is not ported yet).
+SIGNATURE_MODULES = ("aligner.wavefront", "aligner.banded", "parallel.mapper")
+MESH_ONLY = {"make_mesh", "parse_mesh_spec", "make_sharded_score_fn"}
+
+
+def _public_callables():
+    import importlib
+
+    out = []
+    for mod in SIGNATURE_MODULES:
+        ref = importlib.import_module(f"poasta_tpu.{mod}")
+        for name, obj in vars(ref).items():
+            if name.startswith("_") or name in MESH_ONLY or not callable(obj) \
+                    or getattr(obj, "__module__", None) != ref.__name__:
+                continue
+            out.append((mod, name))
+            if name == "DeviceGraph":
+                out.append((mod, "DeviceGraph.build"))
+    return out
+
+
+def _resolve(mod, dotted):
+    import importlib
+    import inspect
+
+    obj = importlib.import_module(mod)
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return list(inspect.signature(obj).parameters.values())
+
+
+def test_signature_walk_covers_the_library_api():
+    """The walk below reaches every entry point the library API names."""
+    names = {name for _, name in _public_callables()}
+    assert {"pack_queries", "DeviceGraph.build", "BandedScorer",
+            "BatchMapper", "dp_fill_scores", "dp_fill_scores_ends_free",
+            "dp_fill_ends_free_with_ends",
+            "ends_free_device_params"} <= names
+
+
+@pytest.mark.parametrize("mod,name", _public_callables())
+def test_port_takes_the_reference_keywords_in_place(mod, name):
+    """Each parameter of the reference's public signature is the port's
+    parameter at the same position, of the same kind and default; what
+    the port adds (``device``) is keyword-only."""
+    import inspect
+
+    ref = _resolve(f"poasta_tpu.{mod}", name)
+    port = _resolve(f"poasta_tpu_torch.{mod}", name)
+    assert [p.name for p in port[:len(ref)]] == [p.name for p in ref]
+    for r, p in zip(ref, port):
+        assert p.kind == r.kind, r.name
+        assert p.default == r.default, r.name
+    assert all(p.kind == inspect.Parameter.KEYWORD_ONLY
+               for p in port[len(ref):]), [p.name for p in port[len(ref):]]
+
+
+def test_pack_queries_pad_to_matches_the_reference():
+    from poasta_tpu.aligner.wavefront import pack_queries as jax_pack
+
+    reads = [b"ACGT" * 10, b"TTGCA"]
+    want_q, want_l = jax_pack(reads, pad_to=4096, place_on_device=False)
+    got_q, got_l = pack_queries(reads, pad_to=4096, device="cpu")
+    assert tuple(got_q.shape) == want_q.shape == (2, 4224)
+    assert np.array_equal(got_q.numpy(), want_q)
+    assert np.array_equal(got_l.numpy(), want_l)
+    # a pad_to under the longest read changes nothing
+    assert tuple(pack_queries(reads, 8, device="cpu")[0].shape) == (2, 128)
+
+
+def test_node_bucket_matches_the_reference():
+    """``node_bucket=128`` pads the rank rows as the reference does, and
+    the banded scorer's scores stay the reference's."""
+    from poasta_tpu.aligner.banded import BandedScorer as JaxScorer
+    from poasta_tpu.aligner.wavefront import DeviceGraph as JaxDeviceGraph
+    from poasta_tpu.aligner.wavefront import pack_queries as jax_pack
+
+    rng = np.random.default_rng(5)
+    base = bytes(rng.choice(list(b"ACGT"), 150).tolist())  # 152 ranks
+    reads = [base, base[:70] + base[100:], base[10:] + b"ACGT"]
+    flats = []
+    for cls in (POAGraph, JaxPOAGraph):
+        g = cls()
+        g.add_alignment_with_weights("s0", base, None, [1] * len(base))
+        flats.append(g.flatten())
+    flat, jflat = flats
+    dg = DeviceGraph.build(flat, node_bucket=128, device="cpu")
+    assert dg.n_nodes_padded == \
+        JaxDeviceGraph.build(jflat, node_bucket=128).n_nodes_padded == 256
+    assert DeviceGraph.build(flat, device="cpu").n_nodes_padded == 192
+    q, ln = pack_queries(reads, device="cpu")
+    got = BandedScorer(flat, COSTS, 128, device="cpu")
+    assert got.dg.n_nodes_padded == 256
+    want = JaxScorer(jflat, COSTS, node_bucket=128).scores(*jax_pack(reads))
+    assert np.asarray(got.scores(q, ln)).tolist() == \
+        np.asarray(want).tolist()
+
+
+def test_keywords_the_port_cannot_serve_raise_by_name():
+    """``engine`` other than auto/pallas, a mesh, and host placement
+    (``place_on_device=False``) without ``device="cpu"`` raise a
+    PoastaError that names the value."""
+    from poasta_tpu_torch.aligner import wavefront as wf
+    from poasta_tpu_torch.utils.errors import PoastaError
+
+    g = _small_graph()
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device="cpu")
+    q, ln = pack_queries([b"ACGTACGTTGCA"], device="cpu")
+    assert wf.dp_fill_scores(dg, q, ln, COSTS, engine="pallas").tolist() == \
+        [0]
+    with pytest.raises(PoastaError, match="engine='xla'"):
+        wf.dp_fill_scores(dg, q, ln, COSTS, engine="xla")
+    from poasta_tpu_torch import UNBOUNDED, EndsFree
+
+    span = EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED, UNBOUNDED)
+    for fill in (wf.dp_fill_scores_ends_free, wf.dp_fill_ends_free_with_ends):
+        with pytest.raises(PoastaError, match="engine='xla'"):
+            fill(dg, flat, q, ln, COSTS, span, engine="xla")
+        with pytest.raises(PoastaError, match="not ported yet"):
+            fill(dg, flat, q, ln, COSTS, span, "auto", object())
+    for make in (lambda: BatchMapper(g, COSTS, object(), device="cpu"),
+                 lambda: BandedScorer(flat, COSTS, 64, object(),
+                                      device="cpu")):
+        with pytest.raises(PoastaError, match="mesh=.*not ported yet"):
+            make()
+    # host arrays would silently move every later fill to the CPU: False
+    # raises unless the caller names the CPU
+    for dev in (None, "cuda"):
+        with pytest.raises(PoastaError,
+                           match="place_on_device=False: not ported yet"):
+            DeviceGraph.build(flat, 64, False, device=dev)
+        with pytest.raises(PoastaError,
+                           match="place_on_device=False: not ported yet"):
+            pack_queries([b"ACGT"], None, False, device=dev)
+    host = DeviceGraph.build(flat, 64, False, device="cpu")
+    assert host.device.type == "cpu"
+    assert pack_queries([b"ACGT"], None, False,
+                        device="cpu")[0].device.type == "cpu"
+    fs, end_ok, jlo = wf.ends_free_device_params(flat, span, ln, 64,
+                                                 with_jlo=False)
+    assert jlo is None and fs and int(end_ok.sum()) == flat.n_nodes
