@@ -166,8 +166,37 @@ before and read just after:
   8a's uncapped B7 scores; B4 is held against its plain version on 2
   reads, uncapped and at the cap of 8b's B7 call.
 
+Phase 12 drives the mesh, single-controller over two entries of the one
+card (``make_mesh(devices=[cuda:0, cuda:0], dp=2)``: the split, a launch a
+shard and the gather, with the real kernels; two shards on one card are no
+speed claim), each meshed call with the launch counters zeroed just before
+and read just after, and every output held against the same call
+unmeshed:
+
+* 12a ``BatchMapper(graph, costs, mesh=...)`` on the uniform configuration:
+  ``score_batch`` on the 1024 reads (the reference's mesh route, the
+  sharded full fill: B2 a shard) equals phase 4's scores, and
+  ``align_batch`` on 64 reads (the banded route: B1 a shard, printed per
+  shard; the trace on cuda:0) equals the unmeshed alignments;
+* 12b ``make_sharded_score_fn`` on 128 uniform reads (B2 a shard) and
+  with the four free-flag pairs on phase 10c's 64 pieces of 1,000 bases
+  (B2f a shard) equals ``dp_fill_scores``;
+* 12c the pangenome configuration's 64 reads under the CLI's semi-global
+  span: ``score_batch`` (B4 a shard over 50,002 ranks) equals 8a's
+  scores, and the port's CLI under the mesh (B7 a shard, the anchored
+  trace on cuda:0) writes GAF byte-equal to ``--mesh off``;
+* 12d two-piece ``score_batch`` on 64 uniform reads (B16 a shard) equals
+  the unmeshed scores;
+* 12e the sp demonstrator (dp = 1, sp = 2: the halo, gathered prefix-min
+  and min over slabs in plain PyTorch, as the reference runs it as an XLA
+  scan) on 64 uniform reads equals phase 4's scores, with its time;
+* 12f ``lasagna align --distributed`` as two processes on the card (gloo
+  on a free localhost port) over 256 uniform reads: the parts, merged in
+  round-robin order, are byte-equal to the single-process GAF;
+* 12g ``--mesh auto`` over every card where more than one is visible.
+
 The ``kernels`` line gives, for every kernel, its launches on the main
-paths, its time and its plain version's at the main path's shapes, and
+paths (phase 12's meshed calls among them), its time and its plain version's at the main path's shapes, and
 ``bound_ms``: the least time the card could take for the same work, the
 larger of the bytes the function must move (each input read once, each
 output written once) over 3.35 TB/s and the integer operations its
@@ -204,6 +233,7 @@ import io
 import json
 import os
 import random
+import socket
 import statistics
 import subprocess
 import sys
@@ -257,6 +287,8 @@ BB_SEED, BB_LEN, BB_EDGE_EVERY, BB_READS, BB_DIV, BB_UB = (23, 40000, 977,
                                                            64, 0.01, 3200)
 B9_REPLACES = "poasta_tpu/ops/pallas_fill.py:816"
 B11_REPLACES = "poasta_tpu/ops/pallas_fill.py:2202"
+# phase 12f: lasagna align --distributed over this many uniform reads
+DIST_READS = 256
 # the plain versions walk every rank in host-driven steps whatever the
 # batch: phase 11 holds each kernel against them on this many reads
 BIG_PLAIN_READS = 2
@@ -888,6 +920,15 @@ def main() -> int:
     big_results, big_launches = big_phases(card, dev, costs,
                                            pan_workload[1], pan_state)
 
+    # ---- 12. the mesh and --distributed ------------------------------------
+    mesh_launches = mesh_phases(card, dev, costs, graph, reads, scores,
+                                pan_workload, pan_state)
+
+    def mesh_calls(name):
+        """A kernel's launches in each meshed call that used it."""
+        return {call: n[name] for call, n in mesh_launches.items()
+                if n.get(name)}
+
     def by_call(name):
         """A fill kernel's launches in each main-path call that used it."""
         i = {"B1": 0, "B2": 1}.get(name)
@@ -896,6 +937,7 @@ def main() -> int:
             "scores mixed max_retries=1": counts["mixed"][i],
             "lasagna align uniform": lasagna["launches"][i]}
         calls.update({call: n[name] for call, n in ef_launches.items()})
+        calls.update(mesh_calls(name))
         return {call: n for call, n in calls.items() if n}
 
     def fill_entry(name, kernel, source, replaces):
@@ -934,7 +976,11 @@ def main() -> int:
          "pangenome_8d": pan_results["decode"]},
         {"name": "full_fill_kernel<bounded, ends>", "route": "cuda",
          "source": f"poasta_tpu_torch/csrc/{full}", "replaces": B7_REPLACES,
-         "launches": pan_launches["B7"], **pan_results["B7"]},
+         "launches": pan_launches["B7"] + sum(mesh_calls("B7").values()),
+         "launches_by_call": {
+             "lasagna align -m semi-global pangenome": pan_launches["B7"],
+             **mesh_calls("B7")},
+         **pan_results["B7"]},
         {"name": "seed_fill_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/seed_kernel.cu",
          "replaces": B8_REPLACES, "launches": pan_launches["B8"],
@@ -950,6 +996,7 @@ def main() -> int:
             ("B17", "banded_kernel<drift, two-piece>", banded,
              B17_REPLACES)):
         calls = {call: n[name] for call, n in tp_launches.items() if n[name]}
+        calls.update(mesh_calls(name))
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"poasta_tpu_torch/csrc/{source}",
                         "replaces": replaces,
@@ -964,6 +1011,7 @@ def main() -> int:
             ("B12f", "full_fill_kernel<bounded, two-piece> under "
              "free_end_mask", B12F_REPLACES)):
         calls = {call: n[name] for call, n in ef2_launches.items() if n[name]}
+        calls.update(mesh_calls(name))
         kernels.append({"name": kernel, "route": "cuda",
                         "source": f"poasta_tpu_torch/csrc/{full}",
                         "replaces": replaces,
@@ -2855,6 +2903,304 @@ def big_phases(card, dev, costs, pan_reads, pan):
           f"{results['B9']['bound_ms']:.3f} ms)  [{card}]", flush=True)
     _phase_done("11b B4 at 50,002 ranks")
     return results, launches
+
+def _merge_round_robin(paths):
+    """The lines of per-process round-robin parts, in input order."""
+    lines = []
+    for path in paths:
+        with open(path) as fh:
+            lines.append(fh.read().splitlines())
+    out, i = [], 0
+    while any(lines):
+        if lines[i % len(lines)]:
+            out.append(lines[i % len(lines)].pop(0))
+        i += 1
+    return "\n".join(out) + "\n" if out else ""
+
+
+def mesh_phases(card, dev, costs, graph, reads, scores, pan_workload, pan):
+    """Phases 12a-12g: the mesh, single-controller over two entries of the
+    one card (dp = 2), and ``lasagna --distributed`` as two processes on it.
+    Every output is held against the same call unmeshed; each kernel was
+    held against its plain version in its own phase.  Returns each meshed
+    call's launches by kernel."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        EndsFree,
+        included,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import GapAffine2Piece
+    from poasta_tpu_torch.aligner import banded as banded_mod
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.ops import cuda_fill as cf
+    from poasta_tpu_torch.parallel import make_mesh, make_sharded_score_fn
+    from poasta_tpu_torch.parallel import mapper as mapper_mod
+
+    mesh = make_mesh(devices=[dev, dev], dp=2)
+    note = ("two shards on one card: no speed claim, the split and the "
+            "gather are what runs")
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    wrappers = {"B1": cf.banded_end_rows, "B2": cf.fill_end_rows,
+                "B3": cf.drift_end_rows, "B2f": cf.free_fill_rows,
+                "B4": cf.bounded_best_rows, "B7": cf.bounded_end_rows,
+                "B16": cf.banded_end_rows_2p, "B17": cf.drift_end_rows_2p}
+    launches = {}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def count():
+        return {b: w.launches for b, w in wrappers.items() if w.launches}
+
+    def read(call):
+        launches[call] = {b: w.launches for b, w in wrappers.items()}
+        return count()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def pairs(out):
+        return [(s, [(p.rpos, p.qpos) for p in a]) for s, a in out]
+
+    # ---- 12a. BatchMapper(mesh=) on the uniform configuration ----------
+    meshed = BatchMapper(graph, costs, mesh=mesh)
+    one = BatchMapper(graph, costs, device=dev)
+    meshed.score_batch(reads)  # warm-ups (the unmeshed one learns its ub)
+    one.score_batch(reads)
+    zero()
+    got, t_mesh = timed(lambda: meshed.score_batch(reads))
+    n = read("score_batch mesh dp=2 uniform")
+    _, t_one = timed(lambda: one.score_batch(reads))
+    if not np.array_equal(got, scores):
+        raise AssertionError("12a: meshed score_batch differs from phase "
+                             "4's scores")
+    if n.get("B2") != 2:
+        raise AssertionError(f"12a: score_batch launched {n}, not B2 on each "
+                             "of 2 shards")
+    print(f"[mesh] 12a score_batch({N_READS} uniform reads), dp=2 on one "
+          f"card: the sharded full fill (the reference's mesh route), "
+          f"{t_mesh * 1e3:.1f} ms, launches {n}; unmeshed (banded) "
+          f"{t_one * 1e3:.1f} ms; scores equal phase 4's  [{card}; {note}]",
+          flush=True)
+    sub = reads[:64]
+    one.align_batch(sub)  # warm-ups: each learns this profile's ub
+    meshed.align_batch(sub)
+    want, t_one = timed(lambda: one.align_batch(sub))
+    shard_rows = []
+    real_banded = banded_mod.banded_scores
+
+    def rec_banded(g_dg, q, *args, **kwargs):
+        shard_rows.append(int(q.shape[0]))
+        return real_banded(g_dg, q, *args, **kwargs)
+
+    with mock.patch.object(banded_mod, "banded_scores", rec_banded):
+        zero()
+        got, t_mesh = timed(lambda: meshed.align_batch(sub))
+        n = read("align_batch mesh dp=2 uniform")
+    if pairs(got) != pairs(want):
+        raise AssertionError("12a: meshed alignments differ from unmeshed")
+    if not n.get("B1") or n["B1"] % 2 or len(shard_rows) != n["B1"]:
+        raise AssertionError(f"12a: align_batch launched {n}, B1 calls "
+                             f"{shard_rows}")
+    per_shard = {f"shard {i}": shard_rows[i::2] for i in range(2)}
+    print(f"[mesh] 12a align_batch(64 uniform reads), dp=2: {t_mesh * 1e3:.1f}"
+          f" ms, unmeshed {t_one * 1e3:.1f} ms; B1 launches per shard "
+          f"(reads each) {per_shard}, launches {n}, "
+          f"{meshed.last_banded_stats}; alignments equal unmeshed (B3: the "
+          f"batch spreads {max(map(len, sub)) - min(map(len, sub))} bases, "
+          f"under the drift threshold "
+          f"{banded_mod.BandedScorer.DRIFT_MIN_SPREAD}"
+          f")  [{card}; {note}]", flush=True)
+    _phase_done("12a BatchMapper(mesh=) uniform")
+
+    # ---- 12b. make_sharded_score_fn: B2 and B2f on each shard -----------
+    dg = one.dg
+    q, ln = pack_queries(reads[:128], device=dev)
+    want = wavefront_mod.dp_fill_scores(dg, q, ln, costs).cpu().numpy()
+    fn = make_sharded_score_fn(dg, costs, mesh)
+    zero()
+    got, t_mesh = timed(lambda: fn(q, ln).cpu().numpy())
+    n = read("make_sharded_score_fn dp=2 128 uniform")
+    if not np.array_equal(got, want) or n.get("B2") != 2:
+        raise AssertionError(f"12b: sharded scores differ or launches {n}")
+    rng = random.Random(FREE_SEED)
+    short = []
+    for r in reads[:64]:
+        a = rng.randrange(0, len(r) - FREE_READ_LEN)
+        short.append(r[a:a + FREE_READ_LEN])
+    qf, lf = pack_queries(short, device=dev)
+    for fs, fe in FREE_FLAGS:
+        want = wavefront_mod.dp_fill_scores(dg, qf, lf, costs, fs,
+                                            fe).cpu().numpy()
+        zero()
+        got = make_sharded_score_fn(dg, costs, mesh, fs, fe)(qf, lf)
+        n = read(f"make_sharded_score_fn dp=2 free_start={fs} "
+                 f"free_end={fe}")
+        if not np.array_equal(got.cpu().numpy(), want) \
+                or n.get("B2f" if fs or fe else "B2") != 2:
+            raise AssertionError(f"12b {fs, fe}: scores differ or launches "
+                                 f"{n}")
+    print(f"[mesh] 12b make_sharded_score_fn dp=2: 128 uniform reads "
+          f"{t_mesh * 1e3:.1f} ms (B2 a shard), and the four free-flag pairs "
+          f"on 64 x {FREE_READ_LEN} bases (B2f a shard): all equal the "
+          f"unmeshed dp_fill_scores  [{card}; {note}]", flush=True)
+    _phase_done("12b make_sharded_score_fn")
+
+    # ---- 12c. semi-global alignment on the pangenome graph --------------
+    pan_graph, pan_reads = pan_workload
+    batch = pan_reads[:PAN_BATCH]
+    pan_mesh = BatchMapper(pan_graph, costs, mesh, aln_type=semi)
+    zero()
+    got, t_mesh = timed(lambda: pan_mesh.score_batch(batch))
+    n = read("score_batch mesh dp=2 semi-global pangenome")
+    if not np.array_equal(got, pan["batch_exact"][0]) or n.get("B4") != 2:
+        raise AssertionError(f"12c: meshed semi-global scores differ from "
+                             f"8a's, or launches {n}")
+    print(f"[mesh] 12c score_batch({PAN_BATCH} pangenome reads, "
+          f"semi-global), dp=2: {t_mesh * 1e3:.1f} ms (B4 a shard over "
+          f"{pan['flat'].n_nodes} ranks), launches {n}; scores equal 8a's  "
+          f"[{card}; {note}]", flush=True)
+    tmp = tempfile.mkdtemp(prefix="poasta_smoke_mesh_")
+    gfa, fa = write_inputs(pan_graph, batch, tmp)
+    outs, secs = {}, {}
+    for name in ("off", "mesh"):
+        out = os.path.join(tmp, f"{name}.gaf")
+        argv = ["align", gfa, fa, "-o", out, "-m", "semi-global", "-j",
+                str(PAN_BATCH), "--mesh", "off"]
+        if name == "off":
+            zero()
+            secs[name] = _lasagna_run(argv)
+            n_off = count()
+        else:
+            # the CLI's own path under the two-entry mesh (a spec of the
+            # one card cannot ask for dp = 2; the CLI imports the parser
+            # from the mapper at the call)
+            with mock.patch.object(mapper_mod, "parse_mesh_spec",
+                                   lambda spec, device=None: mesh):
+                zero()
+                secs[name] = _lasagna_run(argv)
+                n = read("lasagna align -m semi-global mesh dp=2 pangenome")
+        with open(out) as fh:
+            outs[name] = fh.read()
+    if outs["mesh"] != outs["off"] or len(outs["off"].splitlines()) != \
+            PAN_BATCH:
+        raise AssertionError("12c: the meshed semi-global GAF differs from "
+                             "the unmeshed one")
+    if n.get("B7") != 2:
+        raise AssertionError(f"12c: the meshed CLI launched {n}, not B7 on "
+                             "each of 2 shards")
+    print(f"[mesh] 12c lasagna align -m semi-global ({PAN_BATCH} pangenome "
+          f"reads) with the dp=2 mesh: {secs['mesh']:.2f} s, unmeshed "
+          f"{secs['off']:.2f} s; launches {n} (B7 a shard, uncapped as in "
+          f"the reference; the anchored trace on {dev}), unmeshed {n_off} "
+          f"(the capped ladder); GAF byte-equal  [{card}; {note}]",
+          flush=True)
+    _phase_done("12c semi-global pangenome under the mesh")
+
+    # ---- 12d. two-piece score_batch: B16 on each shard -------------------
+    costs_2p = GapAffine2Piece(*COSTS_2P)
+    want = BatchMapper(graph, costs_2p, device=dev).score_batch(sub)
+    tp_mesh = BatchMapper(graph, costs_2p, mesh)
+    zero()
+    got, t_mesh = timed(lambda: tp_mesh.score_batch(sub))
+    n = read("score_batch mesh dp=2 two-piece uniform")
+    if not np.array_equal(got, want) or not n.get("B16") or n["B16"] % 2:
+        raise AssertionError(f"12d: two-piece meshed scores differ or "
+                             f"launches {n}")
+    print(f"[mesh] 12d two-piece score_batch(64 uniform reads), dp=2: "
+          f"{t_mesh * 1e3:.1f} ms, launches {n}, tiers "
+          f"{tp_mesh.scorer.stats['tiers']}; scores equal unmeshed  "
+          f"[{card}; {note}]", flush=True)
+    _phase_done("12d two-piece under the mesh")
+
+    # ---- 12e. the sp demonstrator ---------------------------------------
+    q64, l64 = pack_queries(sub, device=dev)
+    sp_fn = make_sharded_score_fn(dg, costs, make_mesh(devices=[dev, dev],
+                                                       dp=1, sp=2))
+    got, t_sp = timed(lambda: sp_fn(q64, l64).cpu().numpy())
+    if not np.array_equal(got, scores[:64]):
+        raise AssertionError("12e: the sp demonstrator's scores differ")
+    print(f"[mesh] 12e sp demonstrator (dp=1, sp=2; plain PyTorch, no "
+          f"kernel, as the reference's XLA scan): 64 uniform reads x "
+          f"{dg.n_nodes} ranks, L {int(q64.shape[1])} in two slabs of "
+          f"{int(q64.shape[1]) // 2}: {t_sp:.2f} s; scores equal phase 4's  "
+          f"[{card}; {note}]", flush=True)
+    _phase_done("12e sp demonstrator")
+
+    # ---- 12f. lasagna align --distributed: two processes, one card ------
+    tmp = tempfile.mkdtemp(prefix="poasta_smoke_dist_")
+    dist_reads = reads[:DIST_READS]
+    gfa, fa = write_inputs(graph, dist_reads, tmp)
+    single = os.path.join(tmp, "single.gaf")
+    t_single = _lasagna_run(["align", gfa, fa, "-o", single, "--mesh",
+                             "off"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist_out = os.path.join(tmp, "dist.gaf")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "poasta_tpu_torch.cli.lasagna", "align", gfa,
+         fa, "-o", dist_out, "--distributed", "--coordinator-address",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(pid)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_dist = time.perf_counter() - t0
+    for p, err in zip(procs, errs):
+        if p.returncode != 0:
+            raise AssertionError(f"12f: a process exited {p.returncode}: "
+                                 f"{err[-2000:]}")
+    with open(single) as fh:
+        want = fh.read()
+    parts = [f"{dist_out}.part{pid}" for pid in range(2)]
+    if _merge_round_robin(parts) != want \
+            or len(want.splitlines()) != len(dist_reads):
+        raise AssertionError("12f: the merged parts differ from the "
+                             "single-process GAF")
+    print(f"[mesh] 12f lasagna align --distributed, 2 processes (gloo on "
+          f"localhost) on one card, {len(dist_reads)} uniform reads: "
+          f"{t_dist:.2f} s wall "
+          f"from launch to exit (imports, graph load and card set-up in each "
+          f"process), single process in this one {t_single:.2f} s; parts "
+          f"merged round-robin byte-equal  [{card}; {note}]", flush=True)
+
+    # ---- 12g. --mesh auto over every card --------------------------------
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        auto = os.path.join(tmp, "auto.gaf")
+        t_auto = _lasagna_run(["-v", "align", gfa, fa, "-o", auto, "--mesh",
+                               "auto"])
+        with open(auto) as fh:
+            if fh.read() != want:
+                raise AssertionError("12g: --mesh auto GAF differs")
+        print(f"[mesh] 12g --mesh auto over {cards} cards: {t_auto:.2f} s, "
+              f"GAF byte-equal  [{card}]", flush=True)
+    else:
+        print("[mesh] 12g --mesh auto: one card visible, so auto builds no "
+              "mesh (12a-12e used two entries of it)", flush=True)
+    _phase_done("12f-12g --distributed, --mesh auto")
+    return launches
 
 
 def _align_routes(mapper, reads, token):

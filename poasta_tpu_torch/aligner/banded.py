@@ -37,7 +37,7 @@ from ..ops.cuda_fill import (
     prepare_banded_drift,
 )
 from ..ops.dp_rows import INF
-from ..utils.device import check_mesh
+from ..utils.mesh import check_mesh, dp_shards
 from .costs import EndsFree
 from .wavefront import (
     NODE_BUCKET,
@@ -291,11 +291,20 @@ class BandedScorer:
     Usage: ``BandedScorer(flat, costs, aln_type=span).scores(qshift,
     lengths)`` with the batch from :func:`..wavefront.pack_queries`.
     ``device``: where the graph is laid out when no ``dg`` is given (None:
-    the card), its rank rows padded to a multiple of ``node_bucket``;
-    ``mesh``: None (:func:`..utils.device.check_mesh`).  ``aln_type``: None
-    or Global for global alignment; an ``EndsFree`` span scores through the
-    ends-free fills; with two-piece costs every batch takes the bounded full
-    fill under the capped ladder.
+    the card, or the mesh's first device), its rank rows padded to a
+    multiple of ``node_bucket``.  ``aln_type``: None or Global for global
+    alignment; an ``EndsFree`` span scores through the ends-free fills; with
+    two-piece costs every batch takes the bounded full fill under the
+    capped ladder.
+
+    ``mesh``: a port mesh (:mod:`..utils.mesh`) splits every fill's reads
+    over its dp axis, each shard's fill (B1, B3, B16, B17, and the full
+    fill B2 or B12) launched on the first device of its mesh row with the
+    graph and the window tables replicated there once; the sp axis
+    replicates, as it does for the reference's banded fills.  As in the
+    reference, a tier that leaves reads unverified refills the whole batch
+    (no sub-batch), and a mesh does not take an ends-free span.  A shard's
+    error reaches the caller.
     """
 
     # modelled fixed cost of one fill, in cells: biases the tier choice
@@ -312,9 +321,17 @@ class BandedScorer:
         check_mesh(mesh)
         self.flat = flat
         self.costs = costs
+        self.mesh = mesh
         self.aln_type = aln_type
         self.ends_free = isinstance(aln_type, EndsFree)
-        self.dg = dg if dg is not None \
+        if self.ends_free and mesh is not None:
+            raise NotImplementedError(
+                "ends-free banded scoring does not shard over a mesh yet; "
+                "use mesh=None (or dp_fill_scores_ends_free for full "
+                "fills)")
+        if device is None and mesh is not None:
+            device = mesh.first
+        self.dg = dg.placed() if dg is not None \
             else DeviceGraph.build(flat, node_bucket, device=device)
         # window layouts + their device tables, per (n_min, n_max, ub, L)
         # (shared) or ("drift", n_min, n_max, ub, L); plus the span's
@@ -348,8 +365,7 @@ class BandedScorer:
         its ub hint kept per ``len_key`` (the batch's (n_min, n_max); a
         retry tail is keyed by its row width)."""
         if not self.ends_free:
-            return dp_fill_scores(self.dg, qshift, lengths,
-                                  self.costs).cpu().numpy()
+            return self._on_shards(None, dp_fill_scores, qshift, lengths)
         costs = self.costs
         L = int(qshift.shape[1])
 
@@ -423,13 +439,12 @@ class BandedScorer:
             # corridor, so drift applies unchanged; only the end rules
             # differ
             _, end_ok, jlo = self._ef_params(lengths)
-            out = drift_ef_scores(self.dg, q_in, lengths, costs, prep, n_min,
-                                  end_ok, jlo, max_run=max_run)
-        else:
-            fill = drift_scores_2p if costs.is_two_piece else drift_scores
-            out = fill(self.dg, q_in, lengths, costs, prep, n_min,
-                       max_run=max_run)
-        return out.cpu().numpy()
+            return drift_ef_scores(self.dg, q_in, lengths, costs, prep,
+                                   n_min, end_ok, jlo,
+                                   max_run=max_run).cpu().numpy()
+        fill = drift_scores_2p if costs.is_two_piece else drift_scores
+        return self._on_shards(key, fill, q_in, lengths, prep, n_min,
+                               max_run=max_run)
 
     def _fill_once(self, qshift, lengths, ub, n_min, n_max) -> np.ndarray:
         """One banded fill of the batch on shared windows at ``ub``: its
@@ -467,12 +482,36 @@ class BandedScorer:
             q_in = torch.nn.functional.pad(qshift, (0, q_len - L))
         if self.ends_free:
             fs, end_ok, jlo = self._ef_params(lengths)
-            out = ef_scores(self.dg, q_in, lengths, costs, prep, fs, end_ok,
-                            jlo, max_run=max_run)
-        else:
-            fill = banded_scores_2p if costs.is_two_piece else banded_scores
-            out = fill(self.dg, q_in, lengths, costs, prep, max_run=max_run)
-        return out.cpu().numpy()
+            return ef_scores(self.dg, q_in, lengths, costs, prep, fs, end_ok,
+                             jlo, max_run=max_run).cpu().numpy()
+        fill = banded_scores_2p if costs.is_two_piece else banded_scores
+        return self._on_shards(key, fill, q_in, lengths, prep,
+                               max_run=max_run)
+
+    def _on_shards(self, key, fill, q, lengths, *args,
+                   **kwargs) -> np.ndarray:
+        """``fill(dg, q, lengths, costs, *args, **kwargs)`` on each dp
+        shard of the mesh (without one, on the graph's device): the graph
+        and a window layout's tables (``args[0]``, kept under ``key``)
+        replicated once per device, the reads split.  Every shard is
+        launched before any is read back, so shards on distinct cards
+        overlap; the scores are gathered on the host."""
+        outs = []
+        for dev, rows in dp_shards(self.mesh, int(q.shape[0]),
+                                   self.dg.device):
+            shard_args = args
+            if key is not None and dev != self.dg.device:
+                pkey = key + ("on", dev)
+                prep = self._prep_cache.get(pkey)
+                if prep is None:
+                    prep = {k: v.to(dev) if torch.is_tensor(v) else v
+                            for k, v in args[0].items()}
+                    self._prep_cache[pkey] = prep
+                shard_args = (prep,) + args[1:]
+            outs.append(fill(self.dg.on(dev), q[rows].to(dev),
+                             lengths[rows].to(dev), self.costs, *shard_args,
+                             **kwargs))
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def scores(self, qshift, lengths, ub: Optional[int] = None,
                max_retries: int = 4) -> np.ndarray:
@@ -512,6 +551,10 @@ class BandedScorer:
             ub = self._ub_hint.get((n_min, n_max)) or guess
 
         B = int(qshift.shape[0])
+        # under a mesh a tier that leaves reads unverified refills the whole
+        # batch, as the reference's does: no sub-batch gathers, no quantile
+        # tier
+        use_mesh = self.mesh is not None
         out = np.empty(B, dtype=np.int32)
         resolved = np.zeros(B, dtype=bool)
         map_idx = np.arange(B)  # out positions of the current sub-batch
@@ -554,6 +597,8 @@ class BandedScorer:
             finite = sub[~done][sub[~done] < INF]
             grown = max(ub * 2, ub + 256)
             ub = min(int(finite.max()), grown) if finite.size else grown * 2
+            if use_mesh:
+                continue
             # when the tail's scores spread wide, stopping this tier at a
             # score quantile (the narrow bulk verifies now, the wide
             # residue pays one more fill) may beat one max-width fill

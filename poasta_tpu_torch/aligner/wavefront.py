@@ -12,7 +12,7 @@ working set is O(B·W·L), not O(B·N·L).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,7 +30,8 @@ from ..ops.cuda_fill import (
 )
 from ..ops.dp_rows import INF, row_update
 from ..ops.dp_rows_2p import row_update_2p
-from ..utils.device import check_engine, check_mesh, placed_device
+from ..utils.device import check_engine, resolve_device
+from ..utils.mesh import check_mesh, dp_shards, gather, normalize
 from .alignment import AlignedPair, Alignment
 from .costs import EndsFree
 
@@ -125,7 +126,10 @@ class DeviceGraph:
     """Static, bucket-padded view of a flat graph, held on one device.
 
     Everything a fill needs per call is built here once, so a call moves
-    no graph data between host and device.
+    no graph data between host and device.  A graph built with
+    ``place_on_device=False`` keeps its arrays on the host and fills on
+    the device it names (:meth:`placed`); a mesh's shards fill from its
+    copies on their devices (:meth:`on`).
     """
 
     symbols: torch.Tensor  # (Np,) int32; padding rows are symbol -1
@@ -143,10 +147,43 @@ class DeviceGraph:
     pred_valid_flat: torch.Tensor = None  # (Np*P,) int32 0/1
     meta: torch.Tensor = None  # (4,) int32 [n_nodes, end_rank, 0, 0]
     write_slots: torch.Tensor = None  # (Np,) int32 ring slot each rank writes
+    # arrays kept on the host (place_on_device=False), and the device their
+    # fills run on (None: the card, resolved at the fill)
+    on_host: bool = field(default=False, kw_only=True)
+    fill_device: Optional[torch.device] = field(default=None, kw_only=True)
+    # copies on other devices, one per device (see on())
+    replicas: dict = field(default_factory=dict, kw_only=True, compare=False,
+                           repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.symbols.device
+
+    _TENSORS = ("symbols", "pred_slots", "pred_valid", "end_rank",
+                "pred_slots_flat", "pred_valid_flat", "meta", "write_slots")
+
+    def on(self, device) -> "DeviceGraph":
+        """This graph with its tensors on ``device``: itself where they lie
+        there already, else a copy made at the first call and kept (a
+        mesh replicates its graph once per distinct device)."""
+        device = normalize(device)
+        if device == self.device and not self.on_host:
+            return self
+        rep = self.replicas.get(device)
+        if rep is None:
+            rep = replace(self, on_host=False, fill_device=None, replicas={},
+                          **{k: getattr(self, k).to(device)
+                             for k in self._TENSORS})
+            self.replicas[device] = rep
+        return rep
+
+    def placed(self) -> "DeviceGraph":
+        """The graph a fill runs on: itself, or for host arrays
+        (``place_on_device=False``) its copy on the device it was built
+        for, which a missing card makes raise."""
+        if not self.on_host:
+            return self
+        return self.on(resolve_device(self.fill_device))
 
     @staticmethod
     def from_arrays(symbols, pred_slots, pred_valid, pred_ranks, write_slots,
@@ -183,8 +220,10 @@ class DeviceGraph:
         """Lay ``flat`` out on ``device`` (None: the card; raises without
         one).  Rank rows are padded to a multiple of ``node_bucket``.
         ``place_on_device=False`` keeps the arrays on the host (CPU
-        tensors; see :func:`..utils.device.placed_device`)."""
-        device = placed_device(device, place_on_device)
+        tensors) without a device call, as the reference keeps numpy
+        arrays; fills still run on ``device`` (:meth:`placed`)."""
+        if place_on_device:
+            device = resolve_device(device)
         n = flat.n_nodes
         P = _next_pow2(max(1, flat.max_in_degree))
         np_nodes = _round_up(n, node_bucket)
@@ -211,9 +250,15 @@ class DeviceGraph:
         pred_slots[readers, cols] = slot_of[preds]
         pred_valid[readers, cols] = True
         pred_ranks[readers, cols] = preds
-        return DeviceGraph.from_arrays(symbols, pred_slots, pred_valid,
+        if place_on_device:
+            return DeviceGraph.from_arrays(symbols, pred_slots, pred_valid,
+                                           pred_ranks, write_slots, window,
+                                           n, device)
+        host = DeviceGraph.from_arrays(symbols, pred_slots, pred_valid,
                                        pred_ranks, write_slots, window, n,
-                                       device)
+                                       "cpu")
+        return replace(host, on_host=True, fill_device=None
+                       if device is None else torch.device(device))
 
 
 def pack_queries(queries, pad_to: Optional[int] = None,
@@ -225,10 +270,12 @@ def pack_queries(queries, pad_to: Optional[int] = None,
     Column ``j`` holds ``q[j-1]`` (offset j consumes query char j-1);
     column 0 and the padding are 0, which matches no nucleotide symbol.
     ``L`` is the longest read, or ``pad_to`` if longer, plus one, rounded
-    up to a multiple of 128.  ``place_on_device=False`` is taken beside
-    ``device="cpu"`` only (:func:`..utils.device.placed_device`).
+    up to a multiple of 128.  ``place_on_device=False`` returns host (CPU)
+    tensors without a device call, whatever ``device`` says: the fills
+    move their inputs to the graph's device at the call.
     """
-    device = placed_device(device, place_on_device)
+    device = resolve_device(device) if place_on_device \
+        else torch.device("cpu")
     maxlen = max((len(q) for q in queries), default=0)
     L = _round_up(max(pad_to or 0, maxlen) + 1, 128)
     arr = np.zeros((len(queries), L), dtype=np.int32)
@@ -238,6 +285,14 @@ def pack_queries(queries, pad_to: Optional[int] = None,
         lengths[b] = len(q)
     return (torch.as_tensor(arr, device=device),
             torch.as_tensor(lengths, device=device))
+
+
+def _at_graph(dg: DeviceGraph, *batch: torch.Tensor):
+    """(graph, *batch) as a fill takes them: the graph on the device it
+    fills on (:meth:`DeviceGraph.placed`) and the batch's tensors moved
+    there, as the reference's fills take host arrays."""
+    dg = dg.placed()
+    return (dg,) + tuple(t.to(dg.device) for t in batch)
 
 
 def _scan_rows(dg: DeviceGraph, qshift: torch.Tensor, costs, n_ranks: int,
@@ -356,6 +411,7 @@ def dp_fill_full(dg: DeviceGraph, qshift: torch.Tensor, lengths: torch.Tensor,
         raise NotImplementedError(
             "dp_fill_full implements the one-piece recurrence; use "
             "BatchMapper.align_batch / the banded path for two-piece costs")
+    dg, qshift, lengths = _at_graph(dg, qshift, lengths)
     B, L = qshift.shape
     shape = (dg.n_nodes_padded, B, L)
     M = torch.empty(shape, dtype=torch.int32, device=qshift.device)
@@ -585,6 +641,7 @@ def dp_fill_scores(dg: DeviceGraph, qshift: torch.Tensor,
     "auto" or "pallas" (:func:`..utils.device.check_engine`).
     """
     check_engine(engine)
+    dg, qshift, lengths = _at_graph(dg, qshift, lengths)
     if free_start or free_end:
         return free_fill_scores(dg, qshift, lengths, costs, free_start,
                                 free_end)
@@ -651,6 +708,23 @@ def ends_free_device_params(flat: FlatGraph, aln_type: EndsFree,
             torch.as_tensor(end_ok, device=dev), jlo)
 
 
+def _ends_free_fill(fill, dg, flat, qshift, lengths, costs, aln_type,
+                    mesh, max_run):
+    """``fill`` (a bounded fill of :mod:`..ops.cuda_fill`) of an ends-free
+    span on each dp shard of ``mesh`` (None: the graph's device), the
+    graph and the span's end mask replicated, the reads split; the outputs
+    gathered on the graph's device."""
+    check_mesh(mesh)
+    dg, qshift, lengths = _at_graph(dg, qshift, lengths)
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, aln_type, lengths, dg.n_nodes_padded, costs.is_two_piece)
+    return gather([fill(dg.on(d), qshift[rows].to(d), lengths[rows].to(d),
+                        costs, free_start, end_ok.to(d), jlo[rows].to(d),
+                        max_run=max_run)
+                   for d, rows in dp_shards(mesh, int(qshift.shape[0]),
+                                            dg.device)], dg.device)
+
+
 def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
                              qshift: torch.Tensor, lengths: torch.Tensor,
                              costs, aln_type: EndsFree,
@@ -662,17 +736,15 @@ def dp_fill_scores_ends_free(dg: DeviceGraph, flat: FlatGraph,
     (scores are then upper bounds; see ``aligner.banded.run_capped_ladder``).
 
     On a CUDA tensor the bounded fill kernel runs (or raises); on a CPU
-    tensor its plain PyTorch version does.  ``engine`` and ``mesh``: see
-    :func:`..utils.device.check_engine` and ``check_mesh``.
+    tensor its plain PyTorch version does.  ``engine``: see
+    :func:`..utils.device.check_engine`.  ``mesh``: a port mesh
+    (:mod:`..utils.mesh`) runs the fill (B4, B13 for two-piece costs) on
+    each dp shard; a shard's error reaches the caller.
     """
     check_engine(engine)
-    check_mesh(mesh)
-    two_piece = costs.is_two_piece
-    free_start, end_ok, jlo = ends_free_device_params(
-        flat, aln_type, lengths, dg.n_nodes_padded, two_piece)
-    fill = bounded_scores_2p if two_piece else bounded_scores
-    return fill(dg, qshift, lengths, costs, free_start, end_ok, jlo,
-                max_run=max_run)
+    fill = bounded_scores_2p if costs.is_two_piece else bounded_scores
+    return _ends_free_fill(fill, dg, flat, qshift, lengths, costs, aln_type,
+                           mesh, max_run)
 
 
 def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
@@ -691,16 +763,13 @@ def dp_fill_ends_free_with_ends(dg: DeviceGraph, flat: FlatGraph,
 
     On a CUDA tensor the fill kernel runs (or raises); on a CPU tensor its
     plain PyTorch version does.  ``engine`` and ``mesh`` as in
-    :func:`dp_fill_scores_ends_free`.
+    :func:`dp_fill_scores_ends_free` (B7, B14 for two-piece costs, on each
+    shard).
     """
     check_engine(engine)
-    check_mesh(mesh)
-    two_piece = costs.is_two_piece
-    free_start, end_ok, jlo = ends_free_device_params(
-        flat, aln_type, lengths, dg.n_nodes_padded, two_piece)
-    fill = bounded_with_ends_2p if two_piece else bounded_with_ends
-    return fill(dg, qshift, lengths, costs, free_start, end_ok, jlo,
-                max_run=max_run)
+    fill = bounded_with_ends_2p if costs.is_two_piece else bounded_with_ends
+    return _ends_free_fill(fill, dg, flat, qshift, lengths, costs, aln_type,
+                           mesh, max_run)
 
 
 def alignment_cost(graph, query: bytes, alignment: Alignment, costs) -> int:

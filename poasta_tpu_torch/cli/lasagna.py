@@ -4,21 +4,28 @@
 
 Flag-compatible with ``poasta_tpu.cli.lasagna`` and byte-equal in its
 output, with one flag of its own: ``--device {cuda,cpu}``.  The wavefront
-engine batches reads (``-j`` sets the batch size) onto one CUDA card and
+engine batches reads (``-j`` sets the batch size) onto the CUDA cards and
 exits with an error when PyTorch sees none; ``--device cpu`` runs the same
 path with the kernels' plain PyTorch versions.  ``--engine exact`` runs
-the host A* engine per read.
+the host A* engine per read.  ``-m global|semi-global|ends-free`` picks
+the span (semi-global: the whole query against free graph ends, the
+read-mapping span; ends-free: every end free); under a span other than
+global the exact engine runs the Dijkstra heuristic, as the minimum-gap
+heuristic is not admissible when ends are free.
 
-Ported: ``-m global|semi-global|ends-free`` (semi-global: the whole query
-against free graph ends, the read-mapping span; ends-free: every end
-free), ``--engine wavefront|exact`` and the host-only round-robin
-``--shard-index/--shard-count``.  ``--distributed`` and a ``--mesh`` that
-needs more than one device exit with status 1; every spec the reference
-maps to no mesh on one device runs single-device (``auto``, ``off``,
-``none``, ``1`` in any case and spacing, and ``DP,SP`` with DP*SP = 1).
-Under a span other than global the exact engine runs the Dijkstra
-heuristic: the minimum-gap-cost heuristic is not admissible when ends are
-free.
+``--mesh`` shards each batch over a device mesh (``parse_mesh_spec``):
+``auto`` is dp over every visible card, ``off`` one device, ``DP[,SP]``
+explicit axis sizes; under ``--device cpu`` a ``DP[,SP]`` spec builds
+DP*SP CPU entries.  A mesh rounds the batch size up to 64 * dp.
+
+``--distributed`` joins a ``torch.distributed`` process group (gloo: no
+collective runs inside a fill) at ``tcp://--coordinator-address`` with
+``--num-processes`` and ``--process-id``, or without an address from the
+environment a ``torchrun`` launch sets (``env://``).  Each process aligns
+the round-robin slice of the reads its rank selects and writes
+``<output>.part<rank>``; concatenate the parts in round-robin order.
+``--shard-index/--shard-count`` regenerate one such part alone, without a
+process group (a part lost to a failed process).
 """
 
 from __future__ import annotations
@@ -26,39 +33,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ..utils.device import NOT_PORTED, NoDeviceError
+from ..utils.device import NoDeviceError
 from ..utils.errors import PoastaError
-
-
-def mesh_devices(spec: str):
-    """The devices a ``--mesh`` spec asks for, as the reference's
-    ``parse_mesh_spec`` reads it on one device: 1 for every spec it maps
-    to no mesh there (``auto``, ``off``, ``none``, ``1``, and ``DP[,SP]``
-    with DP*SP = 1), else DP*SP; None for a spec it cannot parse or a
-    size below 1."""
-    spec = spec.strip().lower()
-    if spec in ("auto", "off", "1", "none"):
-        return 1
-    parts = spec.split(",")
-    try:
-        dp = int(parts[0])
-        sp = int(parts[1]) if len(parts) > 1 else 1
-    except ValueError:
-        return None
-    return dp * sp if dp >= 1 and sp >= 1 else None
-
-
-def unported_option(args):
-    """The message for an option this port does not carry yet, or None."""
-    if args.distributed:
-        return f"--distributed: {NOT_PORTED}"
-    n = mesh_devices(args.mesh)
-    if n is None:
-        return f"bad --mesh spec {args.mesh!r} (use auto|off|DP[,SP])"
-    if n != 1:
-        return (f"--mesh {args.mesh}: {NOT_PORTED} (one card: a spec of one "
-                "device, such as auto, off, none, 1 or 1,1)")
-    return None
 
 
 def span_of(name: str):
@@ -83,7 +59,7 @@ def align_subcommand(args):
         read_fasta,
         read_fastq,
     )
-    from ..parallel.mapper import BatchMapper
+    from ..parallel.mapper import BatchMapper, make_mesh, parse_mesh_spec
     from ..utils.device import resolve_device
 
     graph, segments = load_graph_from_gfa(
@@ -104,24 +80,61 @@ def align_subcommand(args):
     reader = read_fastq(args.sequences) if is_fastq \
         else read_fasta(args.sequences)
 
-    # standalone shard mode: align round-robin slice K of the read stream
-    # and write <output>.partK; shards are a pure function of (input
+    # multi-process layout: dp has no communication inside a fill, so the
+    # processes need no collective at all; each aligns the round-robin
+    # slice of the read stream its rank selects and writes its own part,
+    # <output>.part<rank>.  The standalone shard mode does the same for one
+    # index without a process group: parts are a pure function of (input
     # order, shard count, shard index), so a lost one is regenerated by
-    # re-running just that index.  Decided before opening any file.
+    # re-running just that index.  Decided before opening any file, so no
+    # process truncates the shared output path.
     out_path = args.output
     shard_idx, shard_cnt = args.shard_index, args.shard_count
+    multi_process = False
     if (shard_idx is None) != (shard_cnt is None):
         raise ValueError(
             "--shard-index and --shard-count must be given together")
     if shard_cnt is not None:
+        if args.distributed:
+            raise ValueError(
+                "--shard-index/--shard-count cannot be combined with "
+                "--distributed (the process index already selects the "
+                "shard)")
         if not (0 <= shard_idx < shard_cnt):
             raise ValueError(
                 f"--shard-index {shard_idx} out of range for "
                 f"--shard-count {shard_cnt}")
+    elif args.engine != "exact":
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            multi_process = True
+            shard_idx, shard_cnt = dist.get_rank(), dist.get_world_size()
+    if shard_cnt is not None:
         reader = (rec for i, rec in enumerate(reader)
                   if i % shard_cnt == shard_idx)
         if args.output:
             out_path = f"{args.output}.part{shard_idx}"
+
+    # the wavefront engine's mesh, also decided before any file is opened
+    mesh = None
+    if multi_process:
+        # each process runs a dp mesh over its own cards; an explicit
+        # global spec cannot be honoured per process, so it is refused
+        # rather than replaced by another layout
+        if args.mesh not in ("auto", "off", "1", "none"):
+            raise ValueError(
+                f"--mesh {args.mesh!r} cannot be honored per-host "
+                "under --distributed; use --mesh auto (dp over each "
+                "host's local devices) or --mesh off")
+        import torch
+
+        local = torch.cuda.device_count() if device.type == "cuda" \
+            else 1
+        mesh = make_mesh(dp=local, sp=1) \
+            if args.mesh == "auto" and local > 1 else None
+    else:
+        mesh = parse_mesh_spec(args.mesh, device=device)
 
     out = open(out_path, "w") if out_path else sys.stdout
 
@@ -145,10 +158,20 @@ def align_subcommand(args):
                 emit_record(name, seq, res.score, res.alignment)
             return
         batch_size = args.batch_size
+        if mesh is not None:
+            # round the batch size up so that every full batch splits into
+            # 64-read blocks over dp (tail batches split unevenly)
+            dp = mesh.shape["dp"]
+            quantum = 64 * dp
+            batch_size = ((batch_size + quantum - 1) // quantum) * quantum
+            if args.verbose:
+                print(f"INFO: mesh dp={dp} sp={mesh.shape['sp']} "
+                      f"({len(mesh.devices.flat)} devices), "
+                      f"batch size {batch_size}", file=sys.stderr)
         if args.verbose:
             print(f"INFO: device {device}, batch size {batch_size}",
                   file=sys.stderr)
-        mapper = BatchMapper(graph, costs, device=device,
+        mapper = BatchMapper(graph, costs, mesh=mesh, device=device,
                              batch_size=batch_size, aln_type=aln_type)
         # super-batches are sorted by read length before splitting into
         # device batches (shared windows pay for the length spread);
@@ -266,11 +289,17 @@ def build_parser():
                         "none; 'cpu' runs the kernels' plain PyTorch "
                         "versions (the one flag the reference CLI lacks)")
     a.add_argument("--mesh", default="auto", metavar="auto|off|DP[,SP]",
-                   help="one card only: auto, off, none, 1 and DP,SP with "
-                        "DP*SP = 1 all run single-device; a mesh of more "
-                        f"devices is {NOT_PORTED}")
+                   help="device mesh for the wavefront engine: 'auto' "
+                        "shards the read batch over every visible card "
+                        "(dp axis), 'off' forces one device, 'DP,SP' sets "
+                        "explicit data/sequence-parallel axis sizes (DP*SP "
+                        "CPU entries under --device cpu)")
     a.add_argument("--distributed", action="store_true",
-                   help=f"multi-process dp ({NOT_PORTED})")
+                   help="join a torch.distributed process group (gloo) "
+                        "before aligning: each process aligns its rank's "
+                        "round-robin slice of the reads and writes "
+                        "<output>.part<rank> (address and ranks from the "
+                        "flags below, or the torchrun environment)")
     a.add_argument("--coordinator-address", default=None,
                    help="host:port of process 0 (with --distributed)")
     a.add_argument("--num-processes", type=int, default=None,
@@ -279,10 +308,29 @@ def build_parser():
                    help="this process's index (with --distributed)")
     a.add_argument("--shard-index", type=int, default=None,
                    help="align only round-robin slice K of the read stream "
-                        "and write <output>.partK")
+                        "and write <output>.partK, without a process group "
+                        "(regenerates a part lost to a failed process)")
     a.add_argument("--shard-count", type=int, default=None,
                    help="total shard count for --shard-index")
     return p
+
+
+def join_process_group(args) -> None:
+    """``torch.distributed.init_process_group`` on the gloo backend: at
+    ``tcp://`` + ``--coordinator-address`` with ``--num-processes`` and
+    ``--process-id``, or without an address from the environment a
+    ``torchrun`` launch sets (``env://``)."""
+    import torch.distributed as dist
+
+    if args.coordinator_address is None:
+        dist.init_process_group("gloo", init_method="env://")
+        return
+    if args.num_processes is None or args.process_id is None:
+        raise ValueError("--coordinator-address needs --num-processes and "
+                         "--process-id")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{args.coordinator_address}",
+        world_size=args.num_processes, rank=args.process_id)
 
 
 def main(argv=None):
@@ -290,12 +338,24 @@ def main(argv=None):
     if args.command != "align":
         print("No subcommand given.", file=sys.stderr)
         return 1
-    msg = unported_option(args)
-    if msg is not None:
-        print(f"Error: {msg}", file=sys.stderr)
+    if args.distributed and args.shard_count is not None:
+        # refused before the rendezvous: a mis-wired recovery run errs
+        # instead of joining a group
+        print("Error: --shard-index/--shard-count cannot be combined with "
+              "--distributed (the process index already selects the "
+              "shard)", file=sys.stderr)
         return 1
     try:
-        align_subcommand(args)
+        if args.distributed:
+            join_process_group(args)
+        try:
+            align_subcommand(args)
+        finally:
+            if args.distributed:
+                import torch.distributed as dist
+
+                if dist.is_initialized():
+                    dist.destroy_process_group()
     except (OSError, ValueError, PoastaError, NoDeviceError) as exc:
         print(f"Error: {exc}", file=sys.stderr)
         return 1

@@ -1,6 +1,22 @@
-"""Batch read mapping against a static graph: port of the single-device
-part of ``poasta_tpu/parallel/mapper.py`` (scoring and alignment of global
-and ends-free spans under one- and two-piece costs)."""
+"""Batch read mapping against a static graph, on one device or over a
+mesh: port of ``poasta_tpu/parallel/mapper.py`` (scoring and alignment of
+global and ends-free spans under one- and two-piece costs).
+
+The mesh (:mod:`..utils.mesh`) is a (dp, sp) grid of devices driven by
+this one process, as one controller drives the reference's ``shard_map``:
+
+* ``dp`` splits the read batch (the reference's ``-j`` fan-out as a mesh
+  axis).  The graph replicates, once per distinct device; each shard runs
+  the same kernel on its own device, and no communication is needed until
+  the scores gather.
+* ``sp`` splits the query offsets of each read (:func:`_sp_scan_rows`):
+  per rank a one-column halo of the predecessors' M row from the previous
+  slab (the reference's ``ppermute``), and the insertion chain's affine
+  prefix-min as local cummins, the slabs' totals gathered and an exclusive
+  combine (its ``all_gather``).  The reference calls it a correctness
+  demonstrator and runs it as an XLA scan; here it is plain PyTorch, on
+  the card too.
+"""
 
 from __future__ import annotations
 
@@ -24,38 +40,186 @@ from ..aligner.wavefront import (
     backtrace_dense,
     dp_fill_ends_free_with_ends,
     dp_fill_full,
+    dp_fill_scores,
+    dp_fill_scores_ends_free,
     pack_queries,
     query_end_lo,
 )
 from ..ops.dp_rows import INF
 from ..ops.seed import seed_scores
 from ..ops.trace import trace_align, trace_enabled
-from ..utils.device import check_mesh
+from ..utils.mesh import (
+    Mesh,
+    check_mesh,
+    dp_shards,
+    gather,
+    make_mesh,
+    parse_mesh_spec,
+)
+
+__all__ = ["BatchMapper", "Mesh", "make_mesh", "make_sharded_score_fn",
+           "parse_mesh_spec"]
+
+
+def _sp_scan_rows(dg: DeviceGraph, qshift: torch.Tensor,
+                  lengths: torch.Tensor, devices, costs, free_start: bool,
+                  free_end: bool) -> torch.Tensor:
+    """(B,) one-piece scores of one dp shard's reads, the query offsets
+    split into ``len(devices)`` contiguous slabs, slab k on ``devices[k]``:
+    the reference's shard body (``poasta_tpu/parallel/mapper.py:79-177``),
+    one rank at a time across the slabs, in plain PyTorch.
+
+    Per rank, each slab takes its diagonal term's column 0 from the
+    previous slab's last column of the predecessors' min M row, moved to
+    its device (the halo); its insertion chain is the affine prefix-min of
+    A - e*j, a local cummin joined with the min of the earlier slabs'
+    totals (the gather and exclusive combine).  A read's value at its
+    length lives on one slab; the min over the slabs picks it.  Scores
+    return on ``devices[0]``."""
+    o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
+    B, L = qshift.shape
+    sp = len(devices)
+    edges = np.cumsum([0] + [L // sp + (k < L % sp) for k in range(sp)])
+    slabs = []
+    for k, dev in enumerate(devices):
+        a, b = int(edges[k]), int(edges[k + 1])
+        idx = lengths.to(dev).long() - a
+        ring = (B, dg.window, b - a)
+        slabs.append({
+            "dev": dev, "q": qshift[:, a:b].to(dev),
+            "j": torch.arange(a, b, dtype=torch.int32, device=dev),
+            "idx": idx.clamp(0, max(b - a - 1, 0)).view(-1, 1),
+            "in": (idx >= 0) & (idx < b - a),
+            "M": torch.full(ring, INF, dtype=torch.int32, device=dev),
+            "D": torch.full(ring, INF, dtype=torch.int32, device=dev)})
+    symbols = dg.symbols.tolist()
+    slots = dg.pred_slots.tolist()
+    valid = dg.pred_valid.tolist()
+    wslots = dg.write_slots.tolist()
+    end = dg.end_rank_i
+    out_dev = devices[0]
+    inf_col = torch.full((B,), INF, dtype=torch.int32, device=out_dev)
+    score, best = None, inf_col
+    for r in range(end + 1):
+        live = [sl for sl, ok in zip(slots[r], valid[r]) if ok]
+        origin = r == 0 or (free_start and r < end)
+        halo = None
+        for k, sl in enumerate(slabs):
+            if live:
+                min_pm = sl["M"][:, live].min(dim=1).values
+                min_pd = sl["D"][:, live].min(dim=1).values
+            else:
+                min_pm = torch.full_like(sl["M"][:, 0], INF)
+                min_pd = min_pm
+            D = torch.minimum(min_pm + (o + e), min_pd + e)
+            halo_in = torch.full_like(min_pm[:, :1], INF) if halo is None \
+                else halo.to(sl["dev"])
+            halo = min_pm[:, -1:]
+            diag = torch.cat([halo_in, min_pm[:, :-1]], dim=1) + torch.where(
+                sl["q"] == symbols[r], 0, x).to(torch.int32)
+            A = torch.minimum(diag, D)
+            if origin and k == 0:
+                A[:, 0] = torch.clamp(A[:, 0], max=0)
+            cum = torch.cummin(A - e * sl["j"], dim=1).values
+            sl.update(min_pm=min_pm, D_row=D, A=A, cum=cum)
+        totals = [sl["cum"][:, -1] for sl in slabs]
+        at_len = inf_col
+        for k, sl in enumerate(slabs):
+            excl = torch.full_like(totals[k], INF)
+            for t in totals[:k]:
+                excl = torch.minimum(excl, t.to(sl["dev"]))
+            prefix = torch.minimum(sl["cum"], excl.view(-1, 1))
+            prefix = torch.cat([excl.view(-1, 1), prefix[:, :-1]], dim=1)
+            if r == end:
+                # the virtual end node: a zero-cost hop at the same offset
+                M = sl["min_pm"]
+                D = torch.full_like(M, INF)
+            else:
+                I = torch.clamp(prefix + o + e * sl["j"], max=INF)
+                M = torch.minimum(sl["A"], I)
+                D = torch.clamp(sl["D_row"], max=INF)
+            sl["M"][:, wslots[r]] = M
+            sl["D"][:, wslots[r]] = D
+            here = torch.where(sl["in"], M.gather(1, sl["idx"])[:, 0], INF)
+            at_len = torch.minimum(at_len, here.to(out_dev))
+        if r == end:
+            score = at_len
+        elif free_end and r > 0:
+            best = torch.minimum(best, at_len)
+    return torch.minimum(score, best) if free_end else score
+
+
+def make_sharded_score_fn(dg: DeviceGraph, costs, mesh: Mesh,
+                          free_start: bool = False, free_end: bool = False):
+    """``fn(qshift (B, L), lengths (B,)) -> (B,)`` scores over ``mesh``,
+    gathered on its first device.
+
+    The reads split over dp; the graph replicates, once per distinct
+    device.  With sp = 1 each shard runs the full-fill kernel on the first
+    device of its mesh row through :func:`..aligner.wavefront.dp_fill_scores`
+    (B2, B12 for two-piece costs; with free graph ends B2f, B12f), at any
+    shard size.  With sp > 1 each dp shard runs :func:`_sp_scan_rows` across
+    its row's devices (one-piece costs only, as in the reference).  A
+    shard's error reaches the caller: ``poasta_tpu`` takes its XLA body
+    after any exception of the sharded kernel
+    (``poasta_tpu/parallel/mapper.py:245-253``), the port does not.
+    """
+    check_mesh(mesh)
+    if mesh is None:
+        raise ValueError("make_sharded_score_fn needs a mesh")
+    sp = mesh.shape["sp"]
+    if sp > 1 and costs.is_two_piece:
+        raise NotImplementedError(
+            "two-piece sharded scoring needs a dp-only mesh (sp = 1), or "
+            "BandedScorer(mesh=...)")
+
+    def fn(qshift, lengths):
+        B = int(qshift.shape[0])
+        parts = []
+        for row, (dev, rows) in enumerate(dp_shards(mesh, B, mesh.first)):
+            if sp == 1:
+                parts.append(dp_fill_scores(
+                    dg.on(dev), qshift[rows].to(dev), lengths[rows].to(dev),
+                    costs, free_start, free_end))
+            else:
+                parts.append(_sp_scan_rows(
+                    dg.on(dev), qshift[rows], lengths[rows],
+                    list(mesh.devices[row]), costs, free_start, free_end))
+        return gather(parts, mesh.first)
+
+    return fn
 
 
 class BatchMapper:
     """lasagna's batch read mapper: scores and aligns batches of reads
     against one static POA graph, deterministically.
 
-    The graph is flattened and placed on ``device`` once (None: the card;
-    raises without one).  Scores come from the banded scorer (exact by
-    verify-and-retry, the full-width fill as its last resort), under
-    ``aln_type``: None or Global, or an ``EndsFree`` span.  ``costs``:
-    ``GapAffine`` or ``GapAffine2Piece``.  ``mesh``: None, as the one
-    card takes every batch (:func:`..utils.device.check_mesh`).
-    Alignments of a global span come from dense tables and a host
-    backtrace for small one-piece batches, and otherwise from the device
-    traceback, with the native engine's banded backtrace for the reads the
-    trace leaves unverified; two-piece costs always take the banded route
-    and skip the trace (it is one-piece), so the native engine backtraces
-    every read, seeded with its exact device score.  Alignments of an
-    ends-free span (see :meth:`_align_batch_ends_free`) come from a fill
-    that also returns each read's end state (seeded corridors on large
-    graphs once a batch has taught the score rates, the full-width fill
-    otherwise), then the device traceback anchored at that end state, with
-    the native engine's anchored corridor for the rest; two-piece costs
-    neither seed nor trace, as in ``poasta_tpu``, so every read takes the
-    anchored corridor.
+    The graph is flattened and placed on ``device`` once (None: the card,
+    or the mesh's first device; raises without one).  Scores come from the
+    banded scorer (exact by verify-and-retry, the full-width fill as its
+    last resort), under ``aln_type``: None or Global, or an ``EndsFree``
+    span.  ``costs``: ``GapAffine`` or ``GapAffine2Piece``.  Alignments of a
+    global span come from dense tables and a host backtrace for small
+    one-piece batches, and otherwise from the device traceback, with the
+    native engine's banded backtrace for the reads the trace leaves
+    unverified; two-piece costs always take the banded route and skip the
+    trace (it is one-piece), so the native engine backtraces every read,
+    seeded with its exact device score.  Alignments of an ends-free span
+    (see :meth:`_align_batch_ends_free`) come from a fill that also returns
+    each read's end state (seeded corridors on large graphs once a batch
+    has taught the score rates, the full-width fill otherwise), then the
+    device traceback anchored at that end state, with the native engine's
+    anchored corridor for the rest; two-piece costs neither seed nor trace,
+    as in ``poasta_tpu``, so every read takes the anchored corridor.
+
+    ``mesh``: None, or a port mesh (:mod:`..utils.mesh`) over which the
+    fills split the batch, as the reference's mesh branches do:
+    ``score_batch`` takes the sharded full fill under a global span
+    (:func:`make_sharded_score_fn`), the sharded banded scorer under
+    two-piece costs, and the sharded bounded fill under an ends-free span;
+    ``align_batch`` takes the banded route at every size, with no capped
+    ladder and no seeding; the trace and the decode run on the mesh's
+    first device.
     """
 
     # dense tables cost Np*B*L*12 bytes; past this budget align_batch takes
@@ -74,13 +238,20 @@ class BatchMapper:
             raise TypeError(f"unknown alignment span {aln_type!r}")
         self.graph = graph
         self.flat = graph.flatten()
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.first
         self.dg = DeviceGraph.build(self.flat, device=device)
         self.costs = costs
         self.batch_size = batch_size
         self.aln_type = aln_type
         self.ends_free = isinstance(aln_type, EndsFree)
-        self.scorer = BandedScorer(self.flat, costs, dg=self.dg,
-                                   aln_type=aln_type)
+        # an ends-free span scores over the mesh through the bounded fill
+        # (score_batch); its scorer keeps the span's tables and counters
+        self.scorer = BandedScorer(self.flat, costs,
+                                   mesh=None if self.ends_free else mesh,
+                                   dg=self.dg, aln_type=aln_type)
+        self._score_fn = None
         self._native = None
         self.last_banded_stats = {"device_traced": 0, "host_backtraced": 0}
         # ends-free alignment: ub hints of the capped full fill per
@@ -97,6 +268,15 @@ class BatchMapper:
         """(B,) exact alignment scores of byte-string reads under the
         mapper's span."""
         qshift, lengths = pack_queries(queries, device=self.dg.device)
+        if self.mesh is not None and self.ends_free:
+            return dp_fill_scores_ends_free(
+                self.dg, self.flat, qshift, lengths, self.costs,
+                self.aln_type, mesh=self.mesh).cpu().numpy()
+        if self.mesh is not None and not self.costs.is_two_piece:
+            if self._score_fn is None:
+                self._score_fn = make_sharded_score_fn(self.dg, self.costs,
+                                                       self.mesh)
+            return self._score_fn(qshift, lengths).cpu().numpy()
         return self.scorer.scores(qshift, lengths)
 
     def _table_bytes(self, n_reads: int, L: int) -> int:
@@ -123,7 +303,9 @@ class BatchMapper:
             return self._align_batch_ends_free(queries, qshift, lengths,
                                                pre_scores=pre_scores)
         B, L = int(qshift.shape[0]), int(qshift.shape[1])
-        if self.costs.is_two_piece \
+        # with a mesh the banded route serves every size: it is the one
+        # that shards (both routes give the same alignments)
+        if self.mesh is not None or self.costs.is_two_piece \
                 or self._table_bytes(B, L) > self.DENSE_TABLE_BUDGET:
             return self._align_batch_banded(queries, qshift, lengths,
                                             scores=pre_scores)
@@ -164,10 +346,10 @@ class BatchMapper:
         """Whether align_batch would take the banded route for this batch,
         from the raw reads (no packing, no upload): the global-span batches
         whose scoring :meth:`prescore` can overlap with alignment (every
-        batch under two-piece costs)."""
+        batch under two-piece costs or a mesh)."""
         if self.ends_free:
             return False
-        if self.costs.is_two_piece:
+        if self.costs.is_two_piece or self.mesh is not None:
             return True
         maxlen = max((len(q) for q in queries), default=0)
         L = ((maxlen + 1 + 127) // 128) * 128  # pack_queries' padding rule
@@ -242,10 +424,11 @@ class BatchMapper:
 
     def _ef_cap_enabled(self) -> bool:
         """Whether the capped fill ladder applies: on the card, where the
-        cap removes scan rounds from the kernel.  On the CPU one uncapped
-        plain fill gives the same exact result.  Split out so that tests
-        can drive the ladder on the CPU."""
-        return self.dg.device.type == "cuda"
+        cap removes scan rounds from the kernel, and without a mesh, as in
+        the reference.  On the CPU one uncapped plain fill gives the same
+        exact result.  Split out so that tests can drive the ladder on the
+        CPU."""
+        return self.mesh is None and self.dg.device.type == "cuda"
 
     def _fill_ends_free_capped(self, qshift, lengths, lengths_np):
         """(scores, end_ranks, end_offsets), numpy, by the full-width
@@ -264,7 +447,7 @@ class BatchMapper:
         def fill(cap=0):
             return tuple(t.cpu().numpy() for t in dp_fill_ends_free_with_ends(
                 self.dg, self.flat, qshift, lengths, costs, self.aln_type,
-                max_run=cap))
+                "auto", self.mesh, max_run=cap))
 
         if not self._ef_cap_enabled():
             return fill()
@@ -297,10 +480,10 @@ class BatchMapper:
         otherwise and for the reads the corridors leave unresolved.  Either
         way the batch's scores teach the seed rates.  An error of the
         seeded fill propagates; it returns None only to route.  Two-piece
-        costs always take the full fill and learn nothing, whatever
-        ``POASTA_SEED`` says (the corridors and their certificate are
-        one-piece, as in ``poasta_tpu``)."""
-        mode = "0" if self.costs.is_two_piece \
+        costs and a mesh always take the full fill and learn nothing,
+        whatever ``POASTA_SEED`` says (the corridors and their certificate
+        are one-piece and single-device, as in ``poasta_tpu``)."""
+        mode = "0" if self.costs.is_two_piece or self.mesh is not None \
             else os.environ.get("POASTA_SEED", "")
         lengths_np = np.fromiter((len(q) for q in queries), dtype=np.int64,
                                  count=len(queries))

@@ -34,29 +34,6 @@ def resolve_device(device=None) -> torch.device:
     return cuda_device() if device is None else torch.device(device)
 
 
-def placed_device(device=None, place_on_device: bool = True) -> torch.device:
-    """Where an entry point that takes the reference's ``place_on_device``
-    puts its arrays: ``device`` (None: the card).  The reference keeps
-    host arrays under ``place_on_device=False`` and still computes on the
-    accelerator; the port picks its path from where the tensors live, so
-    False is taken only beside ``device="cpu"`` and raises otherwise."""
-    if place_on_device or (device is not None
-                           and torch.device(device).type == "cpu"):
-        return resolve_device(device)
-    raise PoastaError(f"place_on_device=False: {NOT_PORTED} (device="
-                      f"{device!r}; host arrays would run the plain "
-                      "versions on the CPU: pass device='cpu' to ask for "
-                      "that)")
-
-
-def check_mesh(mesh) -> None:
-    """The reference's ``mesh=``: None runs on one device; a mesh raises
-    (the port has no multi-card path yet)."""
-    if mesh is not None:
-        raise PoastaError(f"mesh={mesh!r}: {NOT_PORTED} (one card: "
-                          "mesh=None)")
-
-
 def check_engine(engine: str) -> None:
     """The reference's ``engine=`` of the dense fills: "auto" and
     "pallas" name the card's fill kernel (the plain version on a CPU

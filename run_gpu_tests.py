@@ -15,10 +15,8 @@ on the card.  The first failure ends the run with a non-zero exit code;
 nothing is caught to carry on.  It ends with ``all GPU validations
 passed``.
 
-Left out, and said so when it runs: the single-device mesh
-(``run_tpu_tests.py:79-130``; the port has no mesh yet, ROADMAP A6) and
-chain-skip (``:200-205``; an opt-in branch of the TPU kernels that the port
-does not carry).
+Left out, and said so when it runs: chain-skip (``:200-205``; an opt-in
+branch of the TPU kernels that the port does not carry).
 
 Imports the port, numpy, torch and pytest only: the card's machine has no
 JAX.
@@ -85,8 +83,28 @@ def _banded_sections(card, rng):
     dg = DeviceGraph.build(flat, device=card)
     queries = [_mutate(rng, base, 0.05).encode() for _ in range(64)]
     qshift, lengths = pack_queries(queries, device=card)
-    print("single-device mesh (run_tpu_tests.py:79-130): left out, the port "
-          "has no mesh yet (ROADMAP A6)")
+    print("single-device mesh (run_tpu_tests.py:79-130):")
+    from poasta_tpu_torch.parallel import make_mesh, make_sharded_score_fn
+
+    full = dp_fill_scores(dg, qshift, lengths, costs).cpu().numpy()
+    for dp in (1, 2):
+        # the reference's 1 x 1 mesh of its one chip, and the card twice
+        # (dp 2: the split, a launch a shard and the gather)
+        mesh = make_mesh(devices=[card] * dp, dp=dp)
+        _step(f"dp={dp} mesh full fill")
+        before = cf.fill_end_rows.launches
+        got = make_sharded_score_fn(dg, costs, mesh)(qshift, lengths)
+        launched = cf.fill_end_rows.launches - before
+        if launched != dp:
+            raise AssertionError(f"B2 launched {launched} times, not {dp}")
+        assert (got.cpu().numpy() == full).all()
+        print("OK")
+        _step(f"dp={dp} mesh banded fill")
+        before = cf.banded_end_rows.launches
+        bs = BandedScorer(flat, costs, mesh=mesh)
+        assert (bs.scores(qshift, lengths) == full).all()
+        _launched(cf.banded_end_rows, before, "B1")
+        print("OK")
 
     print("randomized costs on the banded route (run_tpu_tests.py:132-147):")
     for seed in (41, 43):

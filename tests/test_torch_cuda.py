@@ -1604,3 +1604,74 @@ def test_seed_register_body_placements(card):
             _seed_check(dg, q, lengths, *inp, fs, end_ok, Wb, cap)
         seen.append(plan["placement"])
     assert seen == ["smem", "rings-global"]
+
+
+# ---- devices other than the current one, and a mesh of one card --------------
+
+def test_kernels_launch_on_their_inputs_card(card):
+    """B1 and B4 on tensors of the last visible card while cuda:0 is
+    current: each launch plans and runs under its inputs' device (the guard
+    of ``_launch_variant`` and ``_launch_full_fill``) and equals its plain
+    version there.  With one card the last is cuda:0 itself."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    g, reads = _case(5, 300, 64)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=last)
+    q, lengths = pack_queries(reads, device=last)
+    prep = _banded_prep(flat, dg, lengths, 200, int(q.shape[1]))
+    fs, end_ok, _ = ends_free_device_params(flat, SEMI_GLOBAL, lengths,
+                                            dg.n_nodes_padded)
+    with torch.cuda.device(0):
+        assert torch.cuda.current_device() == 0
+        b1 = cf.banded_end_rows(dg, q, COSTS, prep, 0)
+        b4 = cf.bounded_best_rows(dg, q, COSTS, fs, end_ok, 0)
+    assert b1.device == b4.device == last
+    torch.cuda.synchronize(last)
+    assert torch.equal(b1, cf.banded_end_rows_plain(dg, q, COSTS, prep, 0))
+    assert torch.equal(b4, cf.bounded_best_rows_plain(dg, q, COSTS, fs,
+                                                      end_ok, 0))
+
+
+def test_repeated_card_mesh_equals_one_card(card):
+    """A dp = 2 mesh of cuda:0 twice: the sharded full fill (B2 a shard),
+    the meshed banded scorer (B1 a shard), ``BatchMapper(mesh=)``'s
+    ``score_batch`` and ``align_batch``, and the sharded bounded fill with
+    end states (B7 a shard) equal the unmeshed outputs."""
+    from poasta_tpu_torch.aligner.wavefront import (
+        dp_fill_ends_free_with_ends,
+        dp_fill_scores,
+    )
+    from poasta_tpu_torch.parallel import make_mesh, make_sharded_score_fn
+
+    mesh = make_mesh(devices=[card, card], dp=2)
+    g, reads = _case(6, 800, 128, div=0.03)
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    one = dp_fill_scores(dg, q, lengths, COSTS).cpu().numpy()
+    before = cf.fill_end_rows.launches
+    got = make_sharded_score_fn(dg, COSTS, mesh)(q, lengths)
+    assert cf.fill_end_rows.launches == before + 2
+    assert got.cpu().numpy().tolist() == one.tolist()
+
+    before = cf.banded_end_rows.launches
+    banded = BandedScorer(flat, COSTS, mesh=mesh).scores(q, lengths)
+    assert (cf.banded_end_rows.launches - before) % 2 == 0
+    assert cf.banded_end_rows.launches > before
+    assert banded.tolist() == one.tolist()
+
+    meshed = BatchMapper(g, COSTS, mesh)
+    plain = BatchMapper(g, COSTS, device=card)
+    assert meshed.score_batch(reads).tolist() == one.tolist()
+    want = plain.align_batch(reads[:64])
+    got = meshed.align_batch(reads[:64])
+    assert [(s, [(p.rpos, p.qpos) for p in a]) for s, a in got] == \
+        [(s, [(p.rpos, p.qpos) for p in a]) for s, a in want]
+
+    before = cf.bounded_end_rows.launches
+    ends = dp_fill_ends_free_with_ends(dg, flat, q, lengths, COSTS,
+                                       SEMI_GLOBAL, mesh=mesh)
+    assert cf.bounded_end_rows.launches == before + 2
+    want = dp_fill_ends_free_with_ends(dg, flat, q, lengths, COSTS,
+                                       SEMI_GLOBAL)
+    assert [t.tolist() for t in ends] == [t.tolist() for t in want]

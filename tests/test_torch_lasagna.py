@@ -4,9 +4,10 @@ the dense route, the banded route (device traceback plus native host
 backtrace), the pipelined multi-batch path, ``--engine exact``, shard
 part files, and ``-m semi-global|ends-free`` (seeded and not, pipelined
 and not; the JAX side then runs its Pallas kernels in interpret mode).
-Options the port does not carry yet exit 1.  The port runs on the CPU here
-because every call names it (``device="cpu"``, ``--device cpu``); without
-that it takes the card or fails.
+The mesh and ``--distributed`` have files of their own
+(``test_torch_mesh.py``, ``test_torch_distributed.py``).  The port runs
+on the CPU here because every call names it (``device="cpu"``,
+``--device cpu``); without that it takes the card or fails.
 """
 
 import os
@@ -259,14 +260,32 @@ def test_cli_single_device_mesh_specs_gaf_byte_equal(spec, tmp_path):
     ["--mesh", "2"],
     ["--mesh", "2,1"],
 ])
-def test_cli_unported_options_exit_1(argv, tmp_path, capsys):
+def test_cli_unported_options_exit_1(argv, tmp_path, capsys, monkeypatch):
+    """The options this test once pinned as unported now run.  ``--mesh
+    2`` and ``2,1`` under ``--device cpu`` build a mesh of two CPU entries:
+    the GAF equals ``--mesh off``'s.  ``--distributed`` without
+    ``--coordinator-address`` reads the environment a torchrun launch sets
+    (``env://``); without it the CLI exits 1 before opening the output."""
     g, reads = _workload(n_reads=2)
     gfa, fa = _write_inputs(tmp_path, g, reads)
     out = tmp_path / "out.gaf"
-    assert port_lasagna(["align", gfa, fa, "-o", str(out), "--device", "cpu",
-                         *argv]) == 1
-    assert "not ported yet" in capsys.readouterr().err
-    assert not out.exists()
+    if argv == ["--distributed"]:
+        for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(name, raising=False)
+        assert port_lasagna(["align", gfa, fa, "-o", str(out), "--device",
+                             "cpu", *argv]) == 1
+        assert "env://" in capsys.readouterr().err
+        assert not out.exists()
+        return
+    off = tmp_path / "off.gaf"
+    assert port_lasagna(["align", gfa, fa, "-o", str(off), "--device", "cpu",
+                         "--mesh", "off"]) == 0
+    assert port_lasagna(["-v", "align", gfa, fa, "-o", str(out), "--device",
+                         "cpu", *argv]) == 0
+    assert "INFO: mesh dp=2 sp=1 (2 devices), batch size 128" in \
+        capsys.readouterr().err
+    assert out.read_text() == off.read_text()
+    assert len(out.read_text().splitlines()) == len(reads)
 
 
 def test_cli_without_a_card_exits_1(tmp_path, capsys):

@@ -46,6 +46,7 @@ COPIED = [
     "io/gfa.py", "io/graph_io.py",
     "bubbles/__init__.py", "bubbles/finder.py", "bubbles/index.py",
     "utils/errors.py", "utils/debug.py", "native/engine.cpp",
+    "tools/__init__.py", "tools/graphviz_region.py", "tools/plot_dp.py",
 ]
 COSTS = GapAffine(4, 2, 6)
 
@@ -83,7 +84,9 @@ def test_port_imports_nothing_of_the_jax_package():
             "poasta_tpu_torch.ops.dp_rows_2p, poasta_tpu_torch.utils.debug, "
             "poasta_tpu_torch.aligner.seeds, "
             "poasta_tpu_torch.aligner.fusion_assist, "
-            "poasta_tpu_torch.utils.build; "
+            "poasta_tpu_torch.utils.build, poasta_tpu_torch.utils.mesh, "
+            "poasta_tpu_torch.entry, poasta_tpu_torch.tools.graphviz_region, "
+            "poasta_tpu_torch.tools.plot_dp; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'poasta_tpu'"
             " or m.startswith(('jax.', 'poasta_tpu.'))]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -204,12 +207,20 @@ def test_native_engine_raises_when_it_cannot_build(tmp_path, monkeypatch):
 
 def test_parallel_package_exports_batch_mapper():
     """``from poasta_tpu_torch.parallel import BatchMapper``, the import
-    every caller of the reference's mapper writes, gives the port's."""
+    every caller of the reference's mapper writes, gives the port's, and
+    the package exports what the reference's does (the mesh helpers
+    too)."""
+    from poasta_tpu import parallel as jax_parallel
     from poasta_tpu.parallel import BatchMapper as JaxMapper
     from poasta_tpu_torch import parallel
 
     assert parallel.BatchMapper is BatchMapper
-    assert parallel.__all__ == ["BatchMapper"]
+    assert parallel.__all__ == jax_parallel.__all__ == [
+        "BatchMapper", "make_mesh", "make_sharded_score_fn",
+        "parse_mesh_spec"]
+    for name in parallel.__all__:
+        assert getattr(parallel, name).__module__.startswith(
+            "poasta_tpu_torch.")
     assert JaxMapper is not BatchMapper
 
 
@@ -244,10 +255,9 @@ def test_pyproject_names_the_port_scripts():
     assert project["dependencies"] == ["jax", "numpy"]
 
 
-# The reference's public callables in the modules the port mirrors, less
-# the mesh helpers (the multi-card path is not ported yet).
+# The reference's public callables in the modules the port mirrors, the
+# mesh helpers included.
 SIGNATURE_MODULES = ("aligner.wavefront", "aligner.banded", "parallel.mapper")
-MESH_ONLY = {"make_mesh", "parse_mesh_spec", "make_sharded_score_fn"}
 
 
 def _public_callables():
@@ -257,7 +267,7 @@ def _public_callables():
     for mod in SIGNATURE_MODULES:
         ref = importlib.import_module(f"poasta_tpu.{mod}")
         for name, obj in vars(ref).items():
-            if name.startswith("_") or name in MESH_ONLY or not callable(obj) \
+            if name.startswith("_") or not callable(obj) \
                     or getattr(obj, "__module__", None) != ref.__name__:
                 continue
             out.append((mod, name))
@@ -282,7 +292,8 @@ def test_signature_walk_covers_the_library_api():
     assert {"pack_queries", "DeviceGraph.build", "BandedScorer",
             "BatchMapper", "dp_fill_scores", "dp_fill_scores_ends_free",
             "dp_fill_ends_free_with_ends",
-            "ends_free_device_params"} <= names
+            "ends_free_device_params", "make_mesh", "parse_mesh_spec",
+            "make_sharded_score_fn"} <= names
 
 
 @pytest.mark.parametrize("mod,name", _public_callables())
@@ -344,10 +355,12 @@ def test_node_bucket_matches_the_reference():
 
 
 def test_keywords_the_port_cannot_serve_raise_by_name():
-    """``engine`` other than auto/pallas, a mesh, and host placement
-    (``place_on_device=False``) without ``device="cpu"`` raise a
-    PoastaError that names the value."""
+    """``engine`` other than auto/pallas, and a mesh object that is not a
+    port mesh, raise a PoastaError that names the value; host placement
+    (``place_on_device=False``) keeps host tensors whatever the device,
+    and the fills move them to the device asked for."""
     from poasta_tpu_torch.aligner import wavefront as wf
+    from poasta_tpu_torch.parallel import make_mesh
     from poasta_tpu_torch.utils.errors import PoastaError
 
     g = _small_graph()
@@ -361,29 +374,32 @@ def test_keywords_the_port_cannot_serve_raise_by_name():
     from poasta_tpu_torch import UNBOUNDED, EndsFree
 
     span = EndsFree(UNBOUNDED, UNBOUNDED, UNBOUNDED, UNBOUNDED)
+    mesh = make_mesh(["cpu"] * 2, dp=2)
     for fill in (wf.dp_fill_scores_ends_free, wf.dp_fill_ends_free_with_ends):
         with pytest.raises(PoastaError, match="engine='xla'"):
             fill(dg, flat, q, ln, COSTS, span, engine="xla")
-        with pytest.raises(PoastaError, match="not ported yet"):
+        with pytest.raises(PoastaError, match="not a poasta_tpu_torch mesh"):
             fill(dg, flat, q, ln, COSTS, span, "auto", object())
-    for make in (lambda: BatchMapper(g, COSTS, object(), device="cpu"),
-                 lambda: BandedScorer(flat, COSTS, 64, object(),
-                                      device="cpu")):
-        with pytest.raises(PoastaError, match="mesh=.*not ported yet"):
-            make()
-    # host arrays would silently move every later fill to the CPU: False
-    # raises unless the caller names the CPU
-    for dev in (None, "cuda"):
+        one = fill(dg, flat, q, ln, COSTS, span)
+        two = fill(dg, flat, q, ln, COSTS, span, "auto", mesh)
+        assert [t.tolist() for t in (one if isinstance(one, tuple)
+                                     else (one,))] == \
+            [t.tolist() for t in (two if isinstance(two, tuple) else (two,))]
+    for make in (lambda m: BatchMapper(g, COSTS, m, device="cpu"),
+                 lambda m: BandedScorer(flat, COSTS, 64, m, device="cpu")):
         with pytest.raises(PoastaError,
-                           match="place_on_device=False: not ported yet"):
-            DeviceGraph.build(flat, 64, False, device=dev)
-        with pytest.raises(PoastaError,
-                           match="place_on_device=False: not ported yet"):
-            pack_queries([b"ACGT"], None, False, device=dev)
-    host = DeviceGraph.build(flat, 64, False, device="cpu")
-    assert host.device.type == "cpu"
-    assert pack_queries([b"ACGT"], None, False,
-                        device="cpu")[0].device.type == "cpu"
+                           match="mesh=<object.*not a poasta_tpu_torch mesh"):
+            make(object())
+        assert make(mesh).mesh is mesh
+    # host arrays, whatever the device named: the fill runs where the
+    # graph was built for (the CPU here; the card by default)
+    for dev in (None, "cuda", "cpu"):
+        host = DeviceGraph.build(flat, 64, False, device=dev)
+        assert host.on_host and host.device.type == "cpu"
+        hq, hl = pack_queries([b"ACGT"], None, False, device=dev)
+        assert hq.device.type == hl.device.type == "cpu"
+    assert wf.dp_fill_scores(host, hq, hl, COSTS).tolist() == \
+        wf.dp_fill_scores(dg, hq, hl, COSTS).tolist()
     fs, end_ok, jlo = wf.ends_free_device_params(flat, span, ln, 64,
                                                  with_jlo=False)
     assert jlo is None and fs and int(end_ok.sum()) == flat.n_nodes
