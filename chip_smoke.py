@@ -195,6 +195,40 @@ unmeshed:
   round-robin order, are byte-equal to the single-process GAF;
 * 12g ``--mesh auto`` over every card where more than one is visible.
 
+Phase 13 drives the mapping path at the size ``PERF.md`` gives for its
+users, ``scripts/pangenome_200k.py``'s graph (seed 37: a 200,000-base
+backbone with an edge ``v -> v+3`` every 500 nodes, 200,002 ranks, where
+the seed index takes k 11) with 512 reads of 5,000 bases at 1.5%
+(``scripts/pangenome_bigbatch.py``'s batch; the first 64 are the
+script's), under the CLI's semi-global span, each run with the launch
+counters zeroed just before and read just after; it prints the host time
+of each stage (graph, ``post_process``, ``flatten``,
+``DeviceGraph.build``, ``pack_queries``, ``KmerIndex``, the GFA written
+and loaded) and its own time:
+
+* 13a the script's probe on the first 64 reads: the uncapped full fill
+  ``dp_fill_ends_free_with_ends`` (B7) gives the reference triple (score,
+  end rank, end offset); ``_fill_ends_free_capped`` equals it; after
+  ``_learn_seed_ub`` a warm-up and three timed ``_ends_free_scores``
+  calls seed (B8 at k 11, ``seeded > 0``) and each equals it;
+* 13b ``prescore`` and ``align_batch`` on the 64 through both routes:
+  every read traced on the card and equal to the native host backtrace,
+  every alignment costing its score; the widest B18 call's planes hold
+  more than 2^31 int32 elements and a verified read's corridor lies wholly
+  at ranks past element 2^31 (rank 131,072 at 64 reads x 256 lanes); the
+  decode held against its plain version on those planes, B8 on its call's
+  2 lowest reads; B18 and B7 timed at the path's inputs (their plain
+  versions would walk 200,002 ranks in host-driven steps, minutes: here
+  the uncapped and seeded fills and the native backtrace hold them, and
+  8d holds them against their plain versions at 50,002 ranks);
+* 13c the port's CLI, ``-m semi-global``, three times on the 512 reads:
+  ``-j 512`` (one batch: the trace splits its 512 reads into the
+  sub-batches ``tier_bytes_per_read`` and ``free_bytes`` give, asserted
+  equal to the count of B18 launches at Wb 256 and at least 2), ``-j 64``
+  (8 batches pipelined, the prescore worker seeding the next batch while
+  the trace runs) and ``-j 512`` with ``POASTA_SEED=0``: the three GAF
+  byte-equal, the first 64 ``AS:i`` equal to 13a's scores.
+
 The ``kernels`` line gives, for every kernel, its launches on the main
 paths (phase 12's meshed calls among them), its time and its plain version's at the main path's shapes, and
 ``bound_ms``: the least time the card could take for the same work, the
@@ -217,7 +251,9 @@ path's launches that the plan sends to a rows body
 lanes; ``full_fill_rows_kernel``: rows past 8,192, 6,144 for B14) have
 rows of their own: B16's one-read launches of 9e, and B1's of 6e where
 its tier passes 10,752 lanes, each held against its plain version at the
-last such call.
+last such call.  Phase 13 adds four rows of its size (B7 at 200,002 ranks,
+B10's; B8 at k 11; B18 ``free_start`` at 200,002 ranks, B19's; the decode
+past 2^31 plane elements) with their launches in phase 13's calls.
 Every rows-body launch of the run, of either template, is counted, and
 the script fails if one came from a path with no such row.
 
@@ -290,8 +326,17 @@ B11_REPLACES = "poasta_tpu/ops/pallas_fill.py:2202"
 # phase 12f: lasagna align --distributed over this many uniform reads
 DIST_READS = 256
 # the plain versions walk every rank in host-driven steps whatever the
-# batch: phase 11 holds each kernel against them on this many reads
+# batch: phases 11 and 13 hold each kernel against them on this many reads
 BIG_PLAIN_READS = 2
+# phase 13: scripts/pangenome_200k.py's graph (seed 37, a 200,000-base
+# backbone with an edge v -> v+3 every 500 nodes) and, going on with the
+# same generator, 512 reads (the batch scripts/pangenome_bigbatch.py calls
+# lasagna-realistic) of 5,000 bases at 1.5%: the first 64 are the script's
+P200_SEED, P200_LEN, P200_READS, P200_BATCH = 37, 200_000, 512, 64
+# int32 elements past which a plane offset no longer fits in an int
+PLANE_ELEMENTS_INT = 2 ** 31
+B10_REPLACES = "poasta_tpu/ops/pallas_fill.py:1046"
+B19_REPLACES = "poasta_tpu/ops/pallas_trace.py:387"
 
 
 def _mutate(rng, s, d, target_len=None):
@@ -377,30 +422,48 @@ def fragment_reads(seqs, n_reads, lo, hi):
     return out
 
 
-def backbone_graph(rng, n, every=PAN_EDGE_EVERY):
+def backbone_graph(rng, n, every=PAN_EDGE_EVERY, times=None):
     """A linear graph of ``n`` random bases with an edge v -> v+3 every
-    ``every`` nodes; returns (graph, base)."""
+    ``every`` nodes; returns (graph, base).  ``times``, a dict, receives
+    the host seconds of the graph's construction and of ``post_process``."""
     from poasta_tpu_torch import POAGraph
 
+    t0 = time.perf_counter()
     base = "".join(rng.choice("ACGT") for _ in range(n))
     graph = POAGraph()
     graph.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
     for v in range(0, n - 3, every):
         graph.add_edge(v, v + 3, 0, 1)
+    t1 = time.perf_counter()
     graph.post_process()
+    if times is not None:
+        times["POAGraph"] = t1 - t0
+        times["post_process"] = time.perf_counter() - t1
     return graph, base
 
 
-def pangenome_workload():
+def pangenome_workload(seed=PAN_SEED, n=PAN_LEN, n_reads=PAN_READS,
+                       read_len=PAN_READ_LEN, times=None):
     """bench.py's pangenome semi-global configuration (seed 17), with 256
-    reads where the bench draws 64: the first 64 are the bench's."""
-    rng = random.Random(PAN_SEED)
-    graph, base = backbone_graph(rng, PAN_LEN)
+    reads where the bench draws 64: the first 64 are the bench's.  Other
+    arguments give the same construction at another seed and size: a
+    backbone of ``n`` bases, then ``n_reads`` reads of ``read_len`` bases at
+    1.5% drawn after it from the same generator.  ``times`` as in
+    :func:`backbone_graph`."""
+    rng = random.Random(seed)
+    graph, base = backbone_graph(rng, n, times=times)
     reads = []
-    for _ in range(PAN_READS):
-        a = rng.randrange(0, PAN_LEN - PAN_READ_LEN)
-        reads.append(_mutate(rng, base[a:a + PAN_READ_LEN], PAN_DIV).encode())
+    for _ in range(n_reads):
+        a = rng.randrange(0, n - read_len)
+        reads.append(_mutate(rng, base[a:a + read_len], PAN_DIV).encode())
     return graph, reads
+
+
+def pangenome_200k_workload(n=P200_LEN, n_reads=P200_READS,
+                            read_len=PAN_READ_LEN, times=None):
+    """scripts/pangenome_200k.py's configuration (seed 37, 200,000 bases)
+    with 512 reads: the first 64 are the script's."""
+    return pangenome_workload(P200_SEED, n, n_reads, read_len, times)
 
 
 def _bound(bytes_moved, ops):
@@ -924,6 +987,9 @@ def main() -> int:
     mesh_launches = mesh_phases(card, dev, costs, graph, reads, scores,
                                 pan_workload, pan_state)
 
+    # ---- 13. the mapping path at 200,000 nodes -----------------------------
+    scale_results, scale_launches = scale_phases(card, dev, costs)
+
     def mesh_calls(name):
         """A kernel's launches in each meshed call that used it."""
         return {call: n[name] for call, n in mesh_launches.items()
@@ -1028,6 +1094,21 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(calls.values()),
                         "launches_by_call": calls, **big_results[name]})
+    for name, key, kernel, source, replaces in (
+            ("B10", "B7", "full_fill_kernel<bounded, ends> at 200,002 ranks "
+             "(B10's size)", full, B10_REPLACES),
+            ("B8", "B8", "seed_fill_kernel at k 11 over 200,002 ranks",
+             "seed_kernel.cu", B8_REPLACES),
+            ("B19", "B18", "trace_kernel<free_start> at 200,002 ranks (B19's "
+             "size)", "trace_kernel.cu", B19_REPLACES),
+            ("decode", "decode", "decode_warp_kernel past 2^31 plane "
+             "elements", "decode_kernel.cu", DECODE_REPLACES)):
+        calls = {call: n[key] for call, n in scale_launches.items() if n[key]}
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": f"poasta_tpu_torch/csrc/{source}",
+                        "replaces": replaces,
+                        "launches": sum(calls.values()),
+                        "launches_by_call": calls, **scale_results[name]})
     replaces = {"B1": B1_REPLACES, "B16": B16_REPLACES}
     for name, res in ROWS_RESULTS.items():
         calls = ROWS_MAIN[name]
@@ -3203,11 +3284,422 @@ def mesh_phases(card, dev, costs, graph, reads, scores, pan_workload, pan):
     return launches
 
 
-def _align_routes(mapper, reads, token):
+def scale_phases(card, dev, costs):
+    """Phases 13a-13c: the mapping path at scripts/pangenome_200k.py's
+    200,000 nodes, with the 512-read batches of
+    scripts/pangenome_bigbatch.py.  Returns (the kernel rows of this size:
+    B7 as B10, B8 at k 11, B18 ``free_start`` as B19, the decode past 2^31
+    plane elements; their launches in each main-path call)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from poasta_tpu_torch import (
+        UNBOUNDED,
+        BatchMapper,
+        DeviceGraph,
+        EndsFree,
+        included,
+        pack_queries,
+    )
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.aligner.seeds import KmerIndex
+    from poasta_tpu_torch.io.gfa import load_graph_from_gfa
+    from poasta_tpu_torch.ops import cuda_fill as cf
+    from poasta_tpu_torch.ops import seed as sd
+    from poasta_tpu_torch.ops import trace as tr
+    from poasta_tpu_torch.parallel import mapper as mapper_mod
+
+    t_phase = time.perf_counter()
+    semi = EndsFree(UNBOUNDED, included(0), UNBOUNDED, UNBOUNDED)
+    wrappers = {"B7": cf.bounded_end_rows, "B8": sd.seed_end_states,
+                "B18": tr.trace_fill, "decode": tr.trace_decode}
+    launches = {}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read(call):
+        launches[call] = {name: w.launches for name, w in wrappers.items()}
+        return launches[call]
+
+    def triples_equal(got, want):
+        return all(np.array_equal(np.asarray(g), np.asarray(w))
+                   for g, w in zip(got, want))
+
+    # ---- 13a. the reference's probe ------------------------------------
+    host = {}
+    t0 = time.perf_counter()
+    graph, reads = pangenome_200k_workload(times=host)
+    host["graph and reads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = graph.flatten()
+    host["flatten"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    DeviceGraph.build(flat, device=dev)
+    torch.cuda.synchronize()
+    host["DeviceGraph.build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mapper = BatchMapper(graph, costs, device=dev, aln_type=semi)
+    host["BatchMapper"] = time.perf_counter() - t0
+    dg, flat = mapper.dg, mapper.flat
+    batch = reads[:P200_BATCH]
+    t0 = time.perf_counter()
+    q, ln = pack_queries(batch, device=dev)
+    torch.cuda.synchronize()
+    host["pack_queries"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    KmerIndex(flat)
+    host["KmerIndex"] = time.perf_counter() - t0
+    lengths_np = np.fromiter(map(len, batch), dtype=np.int64)
+    lens = [len(r) for r in reads]
+    print(f"[200k] graph: {flat.n_nodes} nodes (Np {dg.n_nodes_padded}), W "
+          f"{dg.window}, P {int(dg.pred_slots.shape[1])}; {P200_READS} reads "
+          f"of {min(lens)}-{max(lens)}, L {int(q.shape[1])}; host s "
+          f"{ {k: round(v, 3) for k, v in host.items()} }", flush=True)
+
+    # the kernels' inputs on the path (the widest call of each), for 13b
+    captured = {}
+    real = {"B7": cf._launch_bounded_ends, "B8": sd._launch_seed,
+            "B18": tr._launch_trace, "decode": tr._launch_decode}
+
+    def keep(name, q_at=1):
+        # the path's widest call (the last of equal width), its output too
+        def rec(*args, **kwargs):
+            out = real[name](*args, **kwargs)
+            B = int(args[q_at].shape[0])
+            if B >= captured.get(name, (0,))[0]:
+                captured[name] = (B, args, kwargs, out)
+            return out
+        return rec
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with mock.patch.object(cf, "_launch_bounded_ends", keep("B7")), \
+            mock.patch.object(sd, "_launch_seed", keep("B8")):
+        zero()
+        exact, t_exact = timed(lambda: tuple(
+            t.cpu().numpy() for t in wavefront_mod.dp_fill_ends_free_with_ends(
+                dg, flat, q, ln, costs, semi)))
+        read(f"13a uncapped full fill ({P200_BATCH} reads)")
+        zero()
+        capped, t_capped = timed(
+            lambda: mapper._fill_ends_free_capped(q, ln, lengths_np))
+        read(f"13a capped full fill ({P200_BATCH} reads)")
+        if not triples_equal(capped, exact):
+            raise AssertionError("13a: the capped full fill differs from the "
+                                 "uncapped one")
+        mapper._learn_seed_ub(lengths_np, capped[0])
+        seed_secs, seed_stats = [], []
+        zero()
+        for _ in range(4):
+            got, secs = timed(lambda: mapper._ends_free_scores(batch, q, ln))
+            if not triples_equal(got, exact):
+                raise AssertionError("13a: the seeded (score, end rank, end "
+                                     "offset) differ from the full fill's")
+            seed_secs.append(secs)
+            seed_stats.append(mapper.last_seed_stats)
+        read(f"13a seeded scoring x4 ({P200_BATCH} reads)")
+    st = seed_stats[-1]
+    if not all(s and s["seeded"] > 0 for s in seed_stats):
+        raise AssertionError(f"13a: the seeded path is inert: {seed_stats}")
+    print(f"[200k] 13a {P200_BATCH} reads: uncapped full fill {t_exact:.3f} s, "
+          f"capped {t_capped:.3f} s (ub hints {mapper._ef_ub_hint}), seeded "
+          f"warm-up {seed_secs[0]:.3f} s then {[round(t, 3) for t in seed_secs[1:]]}"
+          f" s; k {st['seed_k']}, seed stats {st}; every (score, end rank, "
+          f"end offset) equals the uncapped full fill's  [{card}]", flush=True)
+    _phase_done("13a the reference's 200k probe")
+
+    # ---- 13b. alignments past 2^31 plane elements ------------------------
+    out = []
+    with mock.patch.object(tr, "_launch_trace", keep("B18")), \
+            mock.patch.object(tr, "_launch_decode", keep("decode", 2)):
+        zero()
+        token = mapper.prescore(batch)
+        if not triples_equal(token[1], exact):
+            raise AssertionError("13b: prescore's triple differs from 13a's")
+        route_s = _align_routes(mapper, batch, token, out)
+        n13b = read(f"13b prescore and align_batch ({P200_BATCH} reads), "
+                    "both routes")
+    for read_, (score, aln), want in zip(batch, out, exact[0]):
+        cost = wavefront_mod.alignment_cost(graph, read_, aln, costs)
+        if cost != score or score != int(want):
+            raise AssertionError(f"13b: an alignment costs {cost}, scored "
+                                 f"{score}, full fill {int(want)}")
+    B, args, kwargs, (aval, ptr) = captured.pop("B18")
+    g_dg, qpad, wst, ar, aj, c, Wb = args[:7]
+    fs = args[7] if len(args) > 7 else kwargs.get("free_start", False)
+    Np = int(ptr.shape[0])
+    elements = Np * B * Wb
+    # the first rank whose rows lie wholly past 2^31 elements
+    past = -(-PLANE_ELEMENTS_INT // (B * Wb))
+    if B != P200_BATCH:
+        raise AssertionError(f"13b: the widest trace call held {B} reads, "
+                             f"not the batch's {P200_BATCH}")
+    # each read's corridor in that call (the first tier, every read
+    # pending), as tier_inputs scheduled it
+    sc_np = np.asarray(exact[0], np.int64)
+    k_tier, _ = tr.gap_budgets(flat, sc_np, costs, Wb)
+    dmin, dmax = tr._sched_potentials(flat, Np, dev)
+    ar_np = ar.cpu().numpy().astype(np.int64)
+
+    def put(v):
+        return torch.as_tensor(np.asarray(v, dtype=np.int64), device=dev)
+
+    _, ok, _, r_lo, _, has = tr._schedule_body(
+        dmin, dmax, put(lengths_np), put(k_tier), put(aj.cpu().numpy()),
+        put(flat.min_dist_from_start[ar_np]),
+        put(flat.max_dist_from_start[ar_np]), flat.n_nodes, Wb)
+    verified = (aval.cpu().numpy() == sc_np) & ok.cpu().numpy()
+    r_lo = r_lo.cpu().numpy()
+    beyond = verified & has.cpu().numpy() & (r_lo >= past)
+    print(f"[200k] 13b align_batch({P200_BATCH} prescored reads): device "
+          f"trace {route_s['device']:.3f} s, native host backtrace "
+          f"{route_s['host']:.3f} s on {os.cpu_count()} cores, alignments "
+          f"equal, each costs its score; launches {n13b}; the widest B18 call "
+          f"(Wb {Wb}, free_start {fs}): planes ({Np}, {B}, {Wb}) = "
+          f"{elements} elements ({elements / PLANE_ELEMENTS_INT:.3f} x "
+          f"2^31); "
+          f"{int(verified.sum())} of {B} reads verified, {int(beyond.sum())} "
+          f"of them with a corridor wholly at ranks >= {past} (lowest rank "
+          f"{int(r_lo[beyond].min()) if beyond.any() else None})  [{card}]",
+          flush=True)
+    if not fs or elements <= PLANE_ELEMENTS_INT:
+        raise AssertionError(f"13b: the B18 call's planes hold {elements} "
+                             "elements, not past 2^31, or it was not "
+                             "free_start")
+    if not beyond.any():
+        raise AssertionError("13b: no verified read's corridor lies past "
+                             f"rank {past}")
+    results = {}
+    inp = dict(qpad=qpad, wstarts=wst, anchor_r=ar, anchor_j=aj)
+    del ptr, aval
+    ms = _time_ms(lambda: tr.trace_fill(g_dg, **inp, costs=c, Wb=Wb,
+                                        free_start=True), 3)
+    plan = tr.trace_plan(g_dg.window, Wb)
+    results["B19"] = {
+        "max_abs_err": max(abs(wavefront_mod.alignment_cost(
+            graph, r_, a_, costs) - s_) for r_, (s_, a_) in zip(batch, out)),
+        "ms": ms, "plain_ms": None,
+        "held_by": "the native host backtrace (alignments equal) and "
+                   "alignment_cost (each costs its score); plain version "
+                   "held at 50,002 ranks (8d)",
+        "shape": [Np, B, Wb], "plane_elements": elements,
+        "first_rank_past_2_31": past,
+        "reads_wholly_past_2_31": int(beyond.sum()),
+        **fill_fields(plan),
+        **fill_bound(g_dg, B, Wb, int(qpad.shape[1]),
+                     g_dg.n_nodes * Wb + 1, tilted=True,
+                     per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS,
+                     table_cols=8)}
+    print(f"[kernels] B18 free_start at {g_dg.n_nodes} ranks: {ms:.3f} ms for "
+          f"{B} reads at Wb {Wb} (bound {results['B19']['bound_ms']:.3f} ms, "
+          f"plan {plan})  [{card}]", flush=True)
+    del inp
+
+    # the decode on the planes of the call that went past 2^31 elements
+    _, args, _, _ = captured.pop("decode")
+    ptr, walk = args[0], args[1:]
+    if tuple(ptr.shape) != (Np, B, Wb):
+        raise AssertionError(f"13b: the last decode walked planes "
+                             f"{tuple(ptr.shape)}, not ({Np}, {B}, {Wb})")
+
+    def dec_k():
+        return tr.trace_decode(ptr, *walk)
+
+    results["decode"] = _compare(
+        "decode past 2^31 plane elements", dec_k,
+        lambda: tr.decode_plain(ptr, *walk), card, reps=5)
+    results["decode"].update(_decode_fields(dec_k, walk, card),
+                             plane_elements=elements)
+    del ptr, walk, dec_k
+
+    # B8 at k 11: the whole call timed, held on its 2 lowest reads
+    _, args, _, _ = captured.pop("B8")
+    (g_dg, qs, wst, ln8, jlo, r_begin, r_end, c, fs, end_ok, Wb8,
+     max_run) = args
+    span = r_end - r_begin
+    full_ms = _time_ms(
+        lambda: sd.seed_end_states(g_dg, qs, wst, ln8, jlo, r_begin, r_end, c,
+                                   fs, end_ok, Wb8, max_run), 5)
+    low = torch.argsort(r_begin)[:BIG_PLAIN_READS]
+    qs2, wst2, ln2, jlo2, rb2, re2 = (
+        t.index_select(0, low).contiguous()
+        for t in (qs, wst, ln8, jlo, r_begin, r_end))
+    ranks = int((re2 - rb2).sum())
+    print(f"[kernels] B8 at k {st['seed_k']}: {int(qs.shape[0])} reads, Wb "
+          f"{Wb8}, max_run {max_run}, rank ranges of {int(span.min())}-"
+          f"{int(span.max())} ranks; the whole call {full_ms:.3f} ms; held "
+          f"on its {BIG_PLAIN_READS} lowest reads (ranks {int(rb2.min())}-"
+          f"{int(re2.max())})", flush=True)
+    results["B8"] = _compare(
+        f"B8 at k {st['seed_k']} ({BIG_PLAIN_READS} lowest reads)",
+        lambda: sd.seed_end_states(g_dg, qs2, wst2, ln2, jlo2, rb2, re2, c,
+                                   fs, end_ok, Wb8, max_run),
+        lambda: sd.seed_end_states_plain(g_dg, qs2, wst2, ln2, jlo2, rb2, re2,
+                                         c, fs, end_ok, Wb8, max_run),
+        card, reps=5)
+    n = g_dg.n_nodes
+    P = int(g_dg.pred_slots.shape[1])
+    extra_preds = int(g_dg.pred_valid_np[:n, 1:].sum()) / n
+    may_end = int(end_ok[:n].sum()) / n
+    all_ranks = int(span.sum())
+    # as 8d, over the whole call (the row's ms is the whole call's)
+    results["B8"].update(_bound(
+        4 * (qs.numel() + all_ranks * (1 + 3 + 2 * P) + 8 * int(qs.shape[0])),
+        all_ranks * Wb8 * (RECURRENCE_OPS - 1 + SCAN_OPS + PRED_OPS
+                           * extra_preds + SEED_END_OPS * may_end)))
+    results["B8"].update(ms_compared=results["B8"]["ms"], ms=full_ms,
+                         reads_compared=BIG_PLAIN_READS,
+                         shape=[int(qs.shape[0]), Wb8], seed_k=st["seed_k"],
+                         **fill_fields(sd.seed_plan(g_dg.window, Wb8)))
+    del qs, wst, qs2, wst2
+
+    # B7 at 200,002 ranks (B10's size): the capped call 13a made
+    _, args, _, _ = captured.pop("B7")
+    g_dg, q7, c, fs, end_ok, max_run = args
+    L = int(q7.shape[1])
+    ms = _time_ms(lambda: cf.bounded_end_rows(g_dg, q7, c, fs, end_ok,
+                                              max_run), 3)
+    plan = cf.bounded_plan(g_dg.window, L, ends=True, max_run=max_run)
+    results["B10"] = {
+        "max_abs_err": max(int(np.abs(np.asarray(a, np.int64)
+                                      - np.asarray(b, np.int64)).max())
+                           for a, b in zip(capped, exact)),
+        "ms": ms, "plain_ms": None,
+        "held_by": "the uncapped full fill and the seeded fill (13a: "
+                   "scores, end ranks, end offsets equal); plain version "
+                   "held at 50,002 ranks (8d)",
+        "shape": [int(q7.shape[0]), L], "ranks": g_dg.n_nodes,
+        "max_run": max_run, **fill_fields(plan),
+        **fill_bound(g_dg, int(q7.shape[0]), L, L, 2 * L, tilted=False,
+                     per_rank=RECURRENCE_OPS + ENDS_OPS * int(end_ok.sum())
+                     / g_dg.n_nodes, table_cols=1)}
+    print(f"[kernels] B7 at {g_dg.n_nodes} ranks (B10's size): {ms:.3f} ms "
+          f"for {int(q7.shape[0])} reads, L {L}, max_run {max_run} (bound "
+          f"{results['B10']['bound_ms']:.3f} ms, plan {plan})  [{card}]",
+          flush=True)
+    del q7, q, ln, token, mapper, dg, captured
+    torch.cuda.empty_cache()
+    _phase_done("13b alignments past 2^31 plane elements")
+
+    # ---- 13c. the CLI at 512 reads -------------------------------------
+    tmp = tempfile.mkdtemp(prefix="poasta_smoke_200k_")
+    t0 = time.perf_counter()
+    gfa, fa = write_inputs(graph, reads, tmp)
+    host["write GFA and FASTA"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_graph_from_gfa(gfa)
+    host["GFA load"] = time.perf_counter() - t0
+    frees, b18_calls, seeded = [], [], []
+    real_free = tr.free_bytes
+    real_scores = mapper_mod.BatchMapper._ends_free_scores
+
+    def rec_free(d):
+        v = real_free(d)
+        frees.append(v)
+        return v
+
+    def rec_trace(*args, **kwargs):
+        b18_calls.append((int(args[1].shape[0]), args[6], args[0]))
+        return real["B18"](*args, **kwargs)
+
+    def rec_scores(self, *args):
+        out = real_scores(self, *args)
+        seeded.append(self.last_seed_stats)
+        return out
+
+    def cli(out_name, j, env=None):
+        out_path = os.path.join(tmp, out_name)
+        os.environ.update(env or {})
+        try:
+            secs = _lasagna_run(["align", gfa, fa, "-o", out_path, "-m",
+                                 "semi-global", "-j", str(j)])
+        finally:
+            for k in env or {}:
+                del os.environ[k]
+        with open(out_path) as fh:
+            return secs, fh.read()
+
+    runs = {}
+    one, many = f"-j {P200_READS}", f"-j {P200_BATCH}"
+    for name, j, env in ((one, P200_READS, None), (many, P200_BATCH, None),
+                         (f"{one}, POASTA_SEED=0", P200_READS,
+                          {"POASTA_SEED": "0"})):
+        del frees[:], b18_calls[:], seeded[:]
+        with mock.patch.object(tr, "free_bytes", rec_free), \
+                mock.patch.object(tr, "_launch_trace", rec_trace), \
+                mock.patch.object(mapper_mod.BatchMapper, "_ends_free_scores",
+                                  rec_scores):
+            zero()
+            secs, text = cli(f"j{j}{'' if env is None else '_seed0'}.gaf", j,
+                             env)
+            n = read(f"lasagna align -m semi-global {name} (200k)")
+        runs[name] = {"secs": secs, "gaf": text, "launches": n,
+                      "frees": list(frees), "b18": [(b, w) for b, w, _
+                                                    in b18_calls],
+                      "seeded": [s and s["seeded"] for s in seeded]}
+        if name == one:
+            per_read = tr.tier_bytes_per_read(b18_calls[0][2], 256)
+            expected = tr.sub_batch_count(P200_READS, per_read, frees[0])
+            at256 = sum(1 for _, w, _ in b18_calls if w == 256)
+            runs[name].update(expected=expected, at256=at256,
+                              per_read=per_read)
+        del b18_calls[:]
+        print(f"[200k] 13c lasagna align -m semi-global {name}: {secs:.2f} s "
+              f"wall, {P200_READS / secs:.2f} reads/s; launches {n}; B18 "
+              f"calls (reads, Wb) {runs[name]['b18']}; free bytes at each "
+              f"tier {runs[name]['frees']}; seeded per batch "
+              f"{runs[name]['seeded']}  [{card}]", flush=True)
+    r512 = runs[one]
+    print(f"[200k] 13c {one}: B18 at Wb 256 launched {r512['at256']} times; "
+          f"expected {r512['expected']} = ceil({P200_READS} / (free "
+          f"{r512['frees'][0]} B // 2 // {r512['per_read']} B a read))",
+          flush=True)
+    if r512["at256"] != r512["expected"] or r512["at256"] < 2:
+        raise AssertionError(f"13c: the {one} trace did not split into the "
+                             "sub-batches its free memory gives")
+    if not all(s > 0 for s in runs[many]["seeded"][1:]):
+        raise AssertionError(f"13c: a {many} batch after the first did not "
+                             f"seed: {runs[many]['seeded']}")
+    gaf = r512["gaf"]
+    if any(r["gaf"] != gaf for r in runs.values()):
+        raise AssertionError("13c: the three runs' GAF differ")
+    lines = gaf.splitlines()
+    if len(lines) != P200_READS:
+        raise AssertionError(f"13c: {len(lines)} GAF records for "
+                             f"{P200_READS} reads")
+    for line in lines:
+        fields = line.split("\t")
+        i = int(fields[0][1:])
+        if i < P200_BATCH:
+            as_i = [f for f in fields if f.startswith("AS:i:")]
+            if as_i != [f"AS:i:{int(exact[0][i])}"]:
+                raise AssertionError(f"13c: read {i}: {as_i}, 13a "
+                                     f"{int(exact[0][i])}")
+    print(f"[200k] 13c the three runs' GAF byte-equal ({len(gaf)} B); the "
+          f"first {P200_BATCH} AS:i equal 13a's scores; host s "
+          f"{ {k: round(v, 3) for k, v in host.items()} }  [{card}]",
+          flush=True)
+    _phase_done(f"13c the CLI at {P200_READS} reads")
+    print(f"[time] phase 13 in all: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return results, launches
+
+
+def _align_routes(mapper, reads, token, device_out=None):
     """``align_batch`` on prescored reads, first on the default route (every
     read must be traced on the device), then with ``POASTA_DEVICE_TRACE=0``
     (every read through the native host backtrace); the two must give the
-    same scores and alignments.  Returns the wall seconds of each."""
+    same scores and alignments.  Returns the wall seconds of each; a list
+    ``device_out`` receives the device route's output."""
     import torch
 
     secs, outs = {}, {}
@@ -3223,6 +3715,8 @@ def _align_routes(mapper, reads, token):
         finally:
             os.environ.pop("POASTA_DEVICE_TRACE", None)
         outs[route] = [(s, list(a)) for s, a in out]
+        if route == "device" and device_out is not None:
+            device_out[:] = out
         key = "device_traced" if route == "device" else "host_backtraced"
         if mapper.last_banded_stats[key] != len(reads):
             raise AssertionError(f"{route} route: {mapper.last_banded_stats}")

@@ -557,6 +557,14 @@ def tier_bytes_per_read(dg, Wb: int) -> int:
                 + -(-dg.window // 4) * 4)
 
 
+def sub_batch_count(n_reads: int, per_read: int, free: int) -> int:
+    """Sub-batches that ``n_reads`` pending reads of ``per_read`` device
+    bytes each take when their buffers may use half of ``free`` bytes; 0
+    where one read's buffers alone pass that."""
+    cap = free // 2 // per_read
+    return -(-n_reads // cap) if cap else 0
+
+
 def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
                 anchor_j=None, free_start: bool = False):
     """Batched device alignments inside score-certified corridors.
@@ -571,7 +579,8 @@ def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
 
     Tiers widen 256 ... 4096 lanes, each with :func:`gap_budgets`'s
     budget, and run only the reads still pending, in sub-batches whose
-    buffers take at most half of :func:`free_bytes`.  A read whose buffers
+    buffers take at most half of :func:`free_bytes`
+    (:func:`sub_batch_count`).  A read whose buffers
     alone pass that stops the tiers (it stays None).
     """
     from ..aligner.alignment import ArrayAlignment
@@ -594,13 +603,12 @@ def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
     for Wb in TIER_WIDTHS:
         if pending.size == 0:
             break
-        per_read = tier_bytes_per_read(dg, Wb)
-        cap = free_bytes(dev) // 2 // per_read
-        if cap == 0:
+        n_sub = sub_batch_count(pending.size, tier_bytes_per_read(dg, Wb),
+                                free_bytes(dev))
+        if n_sub == 0:
             break  # one read's planes pass the device's memory
         k_tier, k_full = gap_budgets(flat, scores_np[pending], costs, Wb)
         at_k_full = bool((k_tier >= k_full).all())
-        n_sub = -(-pending.size // cap)
         still = []
         for idx in np.array_split(np.arange(pending.size), n_sub):
             sub = pending[idx]

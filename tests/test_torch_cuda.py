@@ -632,6 +632,67 @@ def test_anchored_trace_kernel_matches_plain(card, shape, Wb):
     assert bool(done[torch.as_tensor(verified, device=card)].all())
 
 
+def test_anchored_trace_and_decode_past_2_31_plane_elements(card):
+    """The 64-bit plane offsets at the smallest size that needs them: 64
+    reads of 2,000 bases on a 140,000-node backbone, every read's corridor
+    at ranks past 131,072, so that each pointer row B18 writes and the
+    decode reads lies past element 2^31 of the (Np, 64, 256) planes.  The
+    decode kernel equals its plain version, every read verifies, and each
+    decoded alignment costs its score (B18's plain version would walk
+    140,000 ranks: minutes)."""
+    from poasta_tpu_torch.aligner.alignment import ArrayAlignment
+
+    rng = random.Random(131)
+    n, B, read_len, Wb = 140_000, 64, 2_000, 256
+    g, base = _backbone(rng, n, 500)
+    reads = []
+    for _ in range(B):
+        a = rng.randrange(132_500, n - read_len)
+        reads.append(_mutate(rng, base[a:a + read_len], 0.015).encode())
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    Np = dg.n_nodes_padded
+    past = 2 ** 31 // (B * Wb)
+    assert Np * B * Wb > 2 ** 31 and past == 131_072
+    q, lengths = pack_queries(reads, device=card)
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, SEMI_GLOBAL, lengths, Np)
+    sc, er, ej = (t.cpu().numpy() for t in cf.bounded_with_ends(
+        dg, q, lengths, COSTS, free_start, end_ok, jlo))
+    lens = lengths.cpu().numpy()
+    k_tier, k_full = tr.gap_budgets(flat, sc, COSTS, Wb)
+    inp, ok = tr.tier_inputs(dg, flat, q, lens, k_tier, Wb, er, ej)
+    # each read's corridor, as the schedule bounds it
+    dmin, dmax = tr._sched_potentials(flat, Np, card)
+
+    def put(v):
+        return torch.as_tensor(np.asarray(v, dtype=np.int64), device=card)
+
+    er64 = er.astype(np.int64)
+    _, _, _, r_lo, _, has = tr._schedule_body(
+        dmin, dmax, put(lens), put(k_tier), put(ej),
+        put(flat.min_dist_from_start[er64]),
+        put(flat.max_dist_from_start[er64]), flat.n_nodes, Wb)
+    assert bool(has.all()) and int(r_lo.min()) >= past
+    aval, ptr = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb, free_start=True)
+    assert tuple(ptr.shape) == (Np, B, Wb)
+    verified = (aval.cpu().numpy() == sc) & ok
+    assert verified.all()
+    t_max = int(-(-(int(lens.max()) + int(k_full.max()) + 8) // 512) * 512)
+    walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
+            inp["anchor_j"], dg.end_rank_i,
+            torch.as_tensor(verified, device=card), t_max)
+    ops, done = _decode_held(ptr, walk)
+    assert bool(done.all())
+    ops = ops.cpu().numpy()
+    for b, read in enumerate(reads):
+        rpos, qpos = tr.replay_steps(ops[b], int(ej[b]), flat.node_of_rank)
+        aln = ArrayAlignment(rpos, qpos)
+        steps = ops[b][ops[b] != 0]
+        assert int((steps >> 4).min()) >= past  # every rank it walked
+        assert alignment_cost(g, read, aln, COSTS) == int(sc[b])
+
+
 def test_seeded_align_batch_matches_full_fill_route(card, monkeypatch):
     """``align_batch`` under the semi-global span on a graph large enough
     to seed by itself: the seeded batches equal the POASTA_SEED=0 route
