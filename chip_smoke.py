@@ -11,9 +11,11 @@ GapAffine(4, 2, 6)):
 * ``BatchMapper(graph, costs, device="cuda").score_batch(reads)`` on 1024
   reads at 3% divergence (one warm-up, then five timed batches);
 * the same mapper's ``BandedScorer.scores(..., max_retries=1)`` on 1024
-  reads of the bench's mixed-divergence traffic (95% at 2%, 5% at 15%):
-  one banded tier, then the full-width fill for the reads it did not
-  verify.
+  reads in the proportions of the bench's mixed-divergence traffic (95%
+  at 2%, 5% at 15%, seed 11) drawn from the uniform graph's base: one
+  banded tier, then the full-width fill for the reads it did not verify.
+  (bench.py's own ``mixed_div`` configuration, with its own graph and the
+  full ladder, runs in phase 14.)
 
 Both runs are the main path: the launch counters are zeroed before them and
 read after them.  Every score is checked against the same calls run with
@@ -157,14 +159,14 @@ before and read just after:
   then B1 at the inputs ``score_batch`` gave it (the row's time and
   bound), timed on the 64 reads and held against its plain version on 2;
   then B1 on the script's fixed windows (``band_windows`` at ub 3200,
-  an extra field of the row), likewise; those scores bound
+  an extra field of the row), timed on the 64 reads; those scores bound
   ``score_batch``'s from above, and reads 0-3 equal
   ``NativeAligner.align_banded``;
 * 11b B9 ``_fill_kernel_bounded_big``'s: ``dp_fill_scores_ends_free``
   under the CLI's semi-global span on phase 8's graph (50,002 ranks, P 2)
   and 8a's 64 reads, one B4 launch at L 5,120, whose scores must equal
   8a's uncapped B7 scores; B4 is held against its plain version on 2
-  reads, uncapped and at the cap of 8b's B7 call.
+  reads, uncapped as the call launched it.
 
 Phase 12 drives the mesh, single-controller over two entries of the one
 card (``make_mesh(devices=[cuda:0, cuda:0], dp=2)``: the split, a launch a
@@ -229,8 +231,25 @@ and loaded) and its own time:
   the trace runs) and ``-j 512`` with ``POASTA_SEED=0``: the three GAF
   byte-equal, the first 64 ``AS:i`` equal to 13a's scores.
 
+Phase 14 runs the port's bench entry, ``python -m
+poasta_tpu_torch.bench``, as ``main([])`` in process at bench.py's sizes
+(uniform scoring, the native host baseline, hybrid ``align_batch``,
+mixed_div through the full ladder, mixed_len and ef_mixed_len on drifting
+and shared windows, the pangenome's seeded semi-global ``align_batch``),
+with every launch counter zeroed just before it and read after each
+configuration.  It prints the entry's line as ``[bench] {...}`` and
+checks it: every key of bench.py's recorded line (``BENCH_r05.json``) but
+the int16 probe's, the port's five, no ``error``, ``seed_engaged`` true,
+mixed_div's tiered retry engaged (more than one B1 tier a call: the full
+ladder verifies its 15% tail in wider B1 tiers, so its B2 stays phase
+4's).  It holds mixed_div's last timed call against
+the same ladder with the plain versions and its 15% reads against
+``NativeAligner.align_banded``, and every hybrid and pangenome alignment
+against its score (the entry itself asserts bench.py's gates: the native
+engine on 16 reads, hybrid scores, drift equal to shared windows).
+
 The ``kernels`` line gives, for every kernel, its launches on the main
-paths (phase 12's meshed calls among them), its time and its plain version's at the main path's shapes, and
+paths (phase 12's meshed calls and phase 14's configurations among them), its time and its plain version's at the main path's shapes, and
 ``bound_ms``: the least time the card could take for the same work, the
 larger of the bytes the function must move (each input read once, each
 output written once) over 3.35 TB/s and the integer operations its
@@ -990,9 +1009,18 @@ def main() -> int:
     # ---- 13. the mapping path at 200,000 nodes -----------------------------
     scale_results, scale_launches = scale_phases(card, dev, costs)
 
+    # ---- 14. the port's bench entry ----------------------------------------
+    bench_launches = bench_phase(card, costs)
+
     def mesh_calls(name):
         """A kernel's launches in each meshed call that used it."""
         return {call: n[name] for call, n in mesh_launches.items()
+                if n.get(name)}
+
+    def bench_calls(name):
+        """A kernel's launches in each configuration of the bench entry
+        (phase 14) that used it."""
+        return {f"bench {cfg}": n[name] for cfg, n in bench_launches.items()
                 if n.get(name)}
 
     def by_call(name):
@@ -1004,6 +1032,7 @@ def main() -> int:
             "lasagna align uniform": lasagna["launches"][i]}
         calls.update({call: n[name] for call, n in ef_launches.items()})
         calls.update(mesh_calls(name))
+        calls.update(bench_calls(name))
         return {call: n for call, n in calls.items() if n}
 
     def fill_entry(name, kernel, source, replaces):
@@ -1015,6 +1044,12 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(calls.values()),
                 "launches_by_call": calls, **results[name]}
 
+    # the trace fill's launches in the bench: global in hybrid, free_start
+    # in pangenome
+    hybrid_bench = {k: bench_launches.get("hybrid", {}).get(k, 0)
+                    for k in ("B18", "decode")}
+    pan_bench = {k: bench_launches.get("pangenome", {}).get(k, 0)
+                 for k in ("B7", "B8", "B18", "decode")}
     banded, full = "banded_kernel.cu", "fill_kernel.cu"
     kernels = [
         fill_entry("B1", "banded_kernel<global>", banded, B1_REPLACES),
@@ -1027,33 +1062,48 @@ def main() -> int:
                    B6_REPLACES),
         {"name": "trace_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
-         "replaces": B18_REPLACES, "launches": lasagna["launches"][2],
+         "replaces": B18_REPLACES,
+         "launches": lasagna["launches"][2] + hybrid_bench["B18"],
+         "launches_by_call": {"lasagna align uniform": lasagna["launches"][2],
+                              "bench hybrid": hybrid_bench["B18"]},
          **trace_results["B18"],
          "past_the_gate_6e": trace_results["B19"]},
         {"name": "decode_warp_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/decode_kernel.cu",
          "replaces": DECODE_REPLACES,
-         "launches": lasagna["launches"][3] + pan_launches["decode"],
+         "launches": (lasagna["launches"][3] + pan_launches["decode"]
+                      + hybrid_bench["decode"] + pan_bench["decode"]),
          "launches_by_call": {
              "lasagna align uniform": lasagna["launches"][3],
              "lasagna align -m semi-global pangenome":
-                 pan_launches["decode"]},
+                 pan_launches["decode"],
+             "bench hybrid": hybrid_bench["decode"],
+             "bench pangenome": pan_bench["decode"]},
          **trace_results["decode"],
          "pangenome_8d": pan_results["decode"]},
         {"name": "full_fill_kernel<bounded, ends>", "route": "cuda",
          "source": f"poasta_tpu_torch/csrc/{full}", "replaces": B7_REPLACES,
-         "launches": pan_launches["B7"] + sum(mesh_calls("B7").values()),
+         "launches": (pan_launches["B7"] + sum(mesh_calls("B7").values())
+                      + pan_bench["B7"]),
          "launches_by_call": {
              "lasagna align -m semi-global pangenome": pan_launches["B7"],
-             **mesh_calls("B7")},
+             **mesh_calls("B7"), "bench pangenome": pan_bench["B7"]},
          **pan_results["B7"]},
         {"name": "seed_fill_kernel", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/seed_kernel.cu",
-         "replaces": B8_REPLACES, "launches": pan_launches["B8"],
+         "replaces": B8_REPLACES,
+         "launches": pan_launches["B8"] + pan_bench["B8"],
+         "launches_by_call": {
+             "lasagna align -m semi-global pangenome": pan_launches["B8"],
+             "bench pangenome": pan_bench["B8"]},
          **pan_results["B8"]},
         {"name": "trace_kernel<free_start>", "route": "cuda",
          "source": "poasta_tpu_torch/csrc/trace_kernel.cu",
-         "replaces": B18_REPLACES, "launches": pan_launches["B18"],
+         "replaces": B18_REPLACES,
+         "launches": pan_launches["B18"] + pan_bench["B18"],
+         "launches_by_call": {
+             "lasagna align -m semi-global pangenome": pan_launches["B18"],
+             "bench pangenome": pan_bench["B18"]},
          **pan_results["B18"]},
     ]
     for name, kernel, source, replaces in (
@@ -2033,7 +2083,6 @@ def pangenome_phases(card, dev, costs):
     # ---- 8d. B7, B8, B18 free_start at the main path's shapes ---------------
     results = {}
     _, (g_dg, q, c, fs, end_ok, max_run), _ = captured["B7"]
-    b7_cap = max_run
     L = int(q.shape[1])
     plan = cf.bounded_plan(g_dg.window, L, ends=True, max_run=max_run)
     print(f"[kernels] B7 main path: {int(q.shape[0])} reads, L {L}, "
@@ -2139,7 +2188,7 @@ def pangenome_phases(card, dev, costs):
                 "shapes")
     # phase 11b runs B4 over this graph on 8a's batch
     return results, launches, (graph, reads), {
-        "dg": dg, "flat": flat, "batch_exact": exact, "b7_cap": b7_cap}
+        "dg": dg, "flat": flat, "batch_exact": exact}
 
 
 def msa_fasta(directory):
@@ -2905,17 +2954,11 @@ def big_phases(card, dev, costs, pan_reads, pan):
     if not (fixed >= scores).all() or not (fixed[ok] == scores[ok]).all():
         raise AssertionError("11a: the fixed windows' scores undercut or, "
                              "verified, differ from score_batch's")
+    # timed only: B1 is held against its plain version at score_batch's
+    # tier above, and these windows are the script's, not a path's
     fixed_ms = _time_ms(lambda: cf.banded_end_rows(dg, q, costs, prep, 0), 3)
-    q2 = q[:BIG_PLAIN_READS].contiguous()
-    fixed_cmp = _compare(
-        f"B1 at 11a's fixed windows, {BIG_PLAIN_READS} reads",
-        lambda: cf.banded_end_rows(dg, q2, costs, prep, 0),
-        lambda: cf.banded_end_rows_plain(dg, q2, costs, prep, 0), card,
-        reps=3)
-    results["B11"]["max_abs_err"] = max(results["B11"]["max_abs_err"],
-                                        fixed_cmp["max_abs_err"])
     results["B11"]["fixed_windows"] = {
-        "ms": fixed_ms, "plain_ms": fixed_cmp["plain_ms"],
+        "ms": fixed_ms,
         "shape": [BB_READS, prep["width"]], **banded_fields(plan),
         "ub": BB_UB, "verified": int(ok.sum()),
         **fill_bound(dg, BB_READS, prep["width"], L, prep["width"],
@@ -2933,7 +2976,7 @@ def big_phases(card, dev, costs, pan_reads, pan):
           f"{BB_READS} verified at ub {BB_UB}, equal); score_batch's reads "
           f"0-3 equal NativeAligner.align_banded "
           f"({time.perf_counter() - t0:.1f} s)  [{card}]", flush=True)
-    del mapper, dg, q, q2, prep, g_dg, qb, qb2
+    del mapper, dg, q, prep, g_dg, qb, qb2
     torch.cuda.empty_cache()
     _phase_done("11a B1 at 40k ranks x 40 kb reads")
 
@@ -2964,18 +3007,16 @@ def big_phases(card, dev, costs, pan_reads, pan):
           f"scores  [{card}]", flush=True)
     ms = _time_ms(lambda: cf.bounded_best_rows(dg, q, costs, fs, end_ok, 0), 3)
     q2 = q[:BIG_PLAIN_READS].contiguous()
-    cmp = {cap: _compare(
-        f"B4 at 50,002 ranks, {BIG_PLAIN_READS} reads, max_run {cap}",
-        lambda c=cap: cf.bounded_best_rows(dg, q2, costs, fs, end_ok, c),
-        lambda c=cap: cf.bounded_best_rows_plain(dg, q2, costs, fs, end_ok,
-                                                 c), card, reps=3)
-        for cap in (0, pan["b7_cap"])}
+    # uncapped, as the call above launched it
+    cmp = _compare(
+        f"B4 at 50,002 ranks, {BIG_PLAIN_READS} reads, max_run 0",
+        lambda: cf.bounded_best_rows(dg, q2, costs, fs, end_ok, 0),
+        lambda: cf.bounded_best_rows_plain(dg, q2, costs, fs, end_ok, 0),
+        card, reps=3)
     results["B9"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in cmp.values()),
-        "ms": ms, "plain_ms": cmp[0]["plain_ms"],
-        "plain_ms_capped": cmp[pan["b7_cap"]]["plain_ms"],
-        "ms_compared": cmp[0]["ms"], "reads_compared": BIG_PLAIN_READS,
-        "cap_compared": pan["b7_cap"], "shape": [PAN_BATCH, L],
+        "max_abs_err": cmp["max_abs_err"], "ms": ms,
+        "plain_ms": cmp["plain_ms"], "ms_compared": cmp["ms"],
+        "reads_compared": BIG_PLAIN_READS, "shape": [PAN_BATCH, L],
         **fill_fields(plan),
         **fill_bound(dg, PAN_BATCH, L, L, L, tilted=False,
                      per_rank=RECURRENCE_OPS + int(end_ok.sum()) / dg.n_nodes,
@@ -3692,6 +3733,164 @@ def scale_phases(card, dev, costs):
     print(f"[time] phase 13 in all: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return results, launches
+
+
+# Phase 14: the bench's line carries bench.py's recorded keys
+# (BENCH_r05.json's "parsed") less its int16 probe's, plus the port's five.
+BENCH_INT16_KEYS = {"int16_kernel_supported", "int16_probe_toolchain"}
+BENCH_PORT_KEYS = {"backend", "torch", "cuda", "nvcc", "card"}
+# its configurations, in bench.py's order (poasta_tpu_torch/bench.py run_*)
+BENCH_CONFIGS = ("uniform", "host_baseline", "hybrid", "mixed_div",
+                 "mixed_len", "pangenome")
+
+
+def bench_phase(card, costs):
+    """Phase 14: the port's bench entry, ``python -m
+    poasta_tpu_torch.bench``, as ``main([])`` in process at bench.py's
+    sizes, with every launch counter zeroed just before it and read after
+    each of its configurations.  Checks its one line (every key, no
+    ``error``, the seeded corridors engaged, mixed_div's tiered retry),
+    holds mixed_div's last timed call against the same ladder run with
+    the plain versions and its 15% reads against the native banded
+    engine, and every hybrid and pangenome alignment against its score.
+    Returns the launches by configuration."""
+    import numpy as np
+
+    from poasta_tpu_torch import BandedScorer, NativeAligner, bench
+    from poasta_tpu_torch.aligner import banded as banded_mod
+    from poasta_tpu_torch.aligner import wavefront as wavefront_mod
+    from poasta_tpu_torch.ops import cuda_fill as cf
+    from poasta_tpu_torch.ops import seed as sd
+    from poasta_tpu_torch.ops import trace as tr
+
+    t_phase = time.perf_counter()
+    wrappers = {
+        "B1": cf.banded_end_rows, "B2": cf.fill_end_rows,
+        "B3": cf.drift_end_rows, "B4": cf.bounded_best_rows,
+        "B5": cf.ef_best_rows, "B6": cf.drift_ef_best_rows,
+        "B7": cf.bounded_end_rows, "B8": sd.seed_end_states,
+        "B12": cf.fill_end_rows_2p, "B13": cf.bounded_best_rows_2p,
+        "B14": cf.bounded_end_rows_2p, "B16": cf.banded_end_rows_2p,
+        "B17": cf.drift_end_rows_2p, "B2f": cf.free_fill_rows,
+        "B12f": cf.free_fill_rows_2p, "B18": tr.trace_fill,
+        "decode": tr.trace_decode}
+    current, launches, built, scored, outputs = [None], {}, {}, {}, {}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            current[0] = name
+            before = {k: w.launches for k, w in wrappers.items()}
+            out = fn(*args, **kwargs)
+            launches[name] = {k: w.launches - before[k]
+                              for k, w in wrappers.items()
+                              if w.launches != before[k]}
+            return out
+        return run
+
+    def recorded(store, fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            store.setdefault(current[0], []).append((args, out))
+            return out
+        return run
+
+    buf = io.StringIO()
+    with ExitStack() as stack:
+        for name in BENCH_CONFIGS:
+            fn = f"run_{name}"
+            stack.enter_context(mock.patch.object(
+                bench, fn, counted(name, getattr(bench, fn))))
+        for store, fn in ((built, "build_uniform"), (built, "build_mixed_div"),
+                          (built, "build_pangenome"),
+                          (scored, "_time_scores"), (outputs, "_time_calls")):
+            stack.enter_context(mock.patch.object(
+                bench, fn, recorded(store, getattr(bench, fn))))
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main([])
+        finally:
+            lines = buf.getvalue().splitlines()
+            print(f"[bench] {lines[-1] if lines else ''}", flush=True)
+    total = {k: w.launches for k, w in wrappers.items() if w.launches}
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"14: main returned {rc} with {len(lines)} "
+                             "lines on standard output, not one")
+    line = json.loads(lines[0])
+    with open(os.path.join(REPO, "BENCH_r05.json")) as fh:
+        want = set(json.load(fh)["parsed"]) - BENCH_INT16_KEYS \
+            | BENCH_PORT_KEYS
+    if set(line) != want or "error" in line:
+        raise AssertionError(f"14: keys missing {sorted(want - set(line))}, "
+                             f"not expected {sorted(set(line) - want)}")
+    if line["backend"] != "torch-cuda" or line["card"] != card:
+        raise AssertionError(f"14: backend {line['backend']}, card "
+                             f"{line['card']}")
+    if line["seed_engaged"] is not True:
+        raise AssertionError("14: the pangenome calls did not seed")
+    summed = {}
+    for n in launches.values():
+        for k, v in n.items():
+            summed[k] = summed.get(k, 0) + v
+    if summed != total:
+        raise AssertionError(f"14: launches outside the configurations: "
+                             f"{total} against {summed}")
+    # the tiered retry engaged: every timed call took more than one B1 tier
+    (scorer, _, _, _), _ = scored["mixed_div"][0]
+    n_calls = bench.ITERS["mixed_div"] + 1
+    if scorer.stats["tiers"] < 2 \
+            or launches.get("mixed_div", {}).get("B1", 0) < 2 * n_calls:
+        raise AssertionError(f"14: mixed_div took one tier a call: "
+                             f"{scorer.stats}, {launches}")
+    print(f"[bench] launches by configuration {launches}", flush=True)
+
+    # mixed_div's last timed call, again with the plain versions from the
+    # scorer's learned hints and window tables (so, where the last call left
+    # the hint where it found it, the same tiers and tail): equal scores
+    (scorer, qm, lm, _), (got, _, _) = scored["mixed_div"][0]
+    plain = BandedScorer(scorer.flat, costs, dg=scorer.dg)
+    plain._ub_hint = dict(scorer._ub_hint)
+    plain._prep_cache = dict(scorer._prep_cache)
+    stats = dict(scorer.stats)
+    t0 = time.perf_counter()
+    with mock.patch.object(banded_mod, "banded_scores",
+                           cf.banded_scores_plain), \
+            mock.patch.object(wavefront_mod, "fill_scores",
+                              cf.fill_scores_plain):
+        want_scores = plain.scores(qm, lm)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(got, want_scores):
+        raise AssertionError(f"14: mixed_div: {int((got != want_scores).sum())}"
+                             " scores differ from the plain path's")
+    (graph, reads) = built["mixed_div"][0][1]
+    tail = list(range(0, 160, 20))
+    na = NativeAligner(graph)
+    native = _native_scores(na, [reads[i] for i in tail], costs)
+    if [int(got[i]) for i in tail] != native:
+        raise AssertionError("14: mixed_div 15% reads differ from the native "
+                             "banded engine's")
+    print(f"[bench] mixed_div: {len(got)} scores equal the plain path's "
+          f"(ladder {stats}, plain {plain.stats}: "
+          f"{'the same' if stats == plain.stats else 'not the same'}; plain "
+          f"{plain_s:.1f} s); 15% reads {tail} equal "
+          "NativeAligner.align_banded", flush=True)
+    for name, build_name, n in (
+            ("hybrid", "uniform", bench.SIZES["hybrid_sample"]),
+            ("pangenome", "pangenome", None)):
+        (graph, reads) = built[build_name][0][1]
+        out = outputs[name][0][1][0]
+        for read, (score, aln) in zip(reads[:n], out):
+            cost = wavefront_mod.alignment_cost(graph, read, aln, costs)
+            if cost != score:
+                raise AssertionError(f"14: {name}: an alignment costs {cost}"
+                                     f", its score {score}")
+    print("[bench] every hybrid and pangenome alignment costs its score",
+          flush=True)
+    _phase_done("14 the bench entry")
+    print(f"[time] phase 14 in all: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 
 def _align_routes(mapper, reads, token, device_out=None):

@@ -86,7 +86,7 @@ def test_port_imports_nothing_of_the_jax_package():
             "poasta_tpu_torch.aligner.fusion_assist, "
             "poasta_tpu_torch.utils.build, poasta_tpu_torch.utils.mesh, "
             "poasta_tpu_torch.entry, poasta_tpu_torch.tools.graphviz_region, "
-            "poasta_tpu_torch.tools.plot_dp; "
+            "poasta_tpu_torch.tools.plot_dp, poasta_tpu_torch.bench; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'poasta_tpu'"
             " or m.startswith(('jax.', 'poasta_tpu.'))]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
