@@ -2014,8 +2014,8 @@ def pangenome_phases(card, dev, costs):
     print(f"[lasagna] pangenome, -m semi-global -j {PAN_BATCH}, "
           f"{len(per_batch)} batches: {PAN_READS / dev_s:.2f} reads/s "
           f"({dev_s:.2f} s wall, GFA load to last GAF line), device traced "
-          f"{traced} of {PAN_READS}, per batch (traced, device s, host s) "
-          f"{[(ef['device_traced'], round(ef['device_s'], 3), round(ef['host_s'], 3)) for ef, _ in per_batch]}"
+          f"{traced} of {PAN_READS}, per batch traced "
+          f"{[ef['device_traced'] for ef, _ in per_batch]}"
           f", seed stats {[sd_ for _, sd_ in per_batch]}, launches "
           f"{launches}  [{card}]", flush=True)
     if min(launches.values()) <= 0:

@@ -37,6 +37,7 @@ from ..ops.cuda_fill import (
     prepare_banded_drift,
 )
 from ..ops.dp_rows import INF
+from ..utils import spans
 from ..utils.mesh import check_mesh, dp_shards
 from .costs import EndsFree
 from .wavefront import (
@@ -276,8 +277,10 @@ def run_capped_ladder(costs, L: int, ub0: int, fill_capped, fill_plain):
         cap = ins_run_cap(costs, ub, L)
         if cap == 0:
             break  # cap no narrower than the row: plain fill
-        out = fill_capped(cap)
-        if (out[0] <= ub).all():
+        with spans.span("ladder.tier", ub=ub, cap=cap):
+            out = fill_capped(cap)
+            verified = bool((out[0] <= ub).all())
+        if verified:
             return out, max(int(out[0].max()), 1)
         ub *= 4
     out = fill_plain()
@@ -350,6 +353,12 @@ class BandedScorer:
         for k in self.stats:
             self.stats[k] = 0
 
+    def _filled(self, cells: int) -> None:
+        """Add ``cells`` to ``stats["cells_filled"]`` and to the
+        ``cells.ladder`` counter."""
+        self.stats["cells_filled"] += cells
+        spans.count("cells.ladder", cells)
+
     def _ef_params(self, lengths):
         """(free_start, end_ok, jlo) of the scorer's span for a batch;
         end_ok is static per scorer."""
@@ -365,14 +374,16 @@ class BandedScorer:
         its ub hint kept per ``len_key`` (the batch's (n_min, n_max); a
         retry tail is keyed by its row width)."""
         if not self.ends_free:
-            return self._on_shards(None, dp_fill_scores, qshift, lengths)
+            with spans.span("ladder.full_fill"):
+                return self._on_shards(None, dp_fill_scores, qshift, lengths)
         costs = self.costs
         L = int(qshift.shape[1])
 
         def fill(cap=0):
-            return (dp_fill_scores_ends_free(
-                self.dg, self.flat, qshift, lengths, costs, self.aln_type,
-                max_run=cap).cpu().numpy(),)
+            with spans.span("ladder.full_fill", cap=cap):
+                return (dp_fill_scores_ends_free(
+                    self.dg, self.flat, qshift, lengths, costs,
+                    self.aln_type, max_run=cap).cpu().numpy(),)
 
         key = ("ef_full_ub",) + (len_key if len_key is not None else (L,))
         hint = self._ub_hint.get(key)
@@ -414,18 +425,8 @@ class BandedScorer:
         key = ("drift", n_min, n_max, ub, L)
         cached = self._prep_cache.get(key)
         if cached is None:
-            wstart, width, s_ranks = band_windows_drift(
-                self.flat, n_min, n_max, costs, ub, S,
-                aln_type=self.aln_type)
-            # the shared layout runs the same fill at the same speed per
-            # cell: drift pays only when it is narrower
-            shared_width = band_windows(self.flat, n_min, n_max, costs, ub,
-                                        aln_type=self.aln_type)[1] + 128
-            cached = None, None
-            if width + 128 < shared_width and width < L:
-                req = _round_up(int(wstart.max()) + width, 128)
-                cached = width, prepare_banded_drift(
-                    self.dg, costs, wstart, width, s_ranks, S, max(L, req))
+            with spans.span("ladder.prep", drift=True):
+                cached = self._prep_drift(n_min, n_max, ub, S, L)
             self._prep_cache[key] = cached
         width, prep = cached
         if width is None:
@@ -434,17 +435,34 @@ class BandedScorer:
         q_in = torch.nn.functional.pad(
             qshift, (prep["mq"], max(prep["L"] - L, 0)))
         max_run = ins_run_cap(costs, ub, width)
-        if self.ends_free:
-            # a bounded span is anchored on a diagonal like the global
-            # corridor, so drift applies unchanged; only the end rules
-            # differ
-            _, end_ok, jlo = self._ef_params(lengths)
-            return drift_ef_scores(self.dg, q_in, lengths, costs, prep,
-                                   n_min, end_ok, jlo,
-                                   max_run=max_run).cpu().numpy()
-        fill = drift_scores_2p if costs.is_two_piece else drift_scores
-        return self._on_shards(key, fill, q_in, lengths, prep, n_min,
-                               max_run=max_run)
+        with spans.span("ladder.fill", drift=True):
+            if self.ends_free:
+                # a bounded span is anchored on a diagonal like the global
+                # corridor, so drift applies unchanged; only the end rules
+                # differ
+                _, end_ok, jlo = self._ef_params(lengths)
+                return drift_ef_scores(self.dg, q_in, lengths, costs, prep,
+                                       n_min, end_ok, jlo,
+                                       max_run=max_run).cpu().numpy()
+            fill = drift_scores_2p if costs.is_two_piece else drift_scores
+            return self._on_shards(key, fill, q_in, lengths, prep, n_min,
+                                   max_run=max_run)
+
+    def _prep_drift(self, n_min, n_max, ub, S, L):
+        """(width, the drift tables) of a drifting layout, or (None, None)
+        where it is no narrower than the shared one or than the row."""
+        costs = self.costs
+        wstart, width, s_ranks = band_windows_drift(
+            self.flat, n_min, n_max, costs, ub, S, aln_type=self.aln_type)
+        # the shared layout runs the same fill at the same speed per cell:
+        # drift pays only when it is narrower
+        shared_width = band_windows(self.flat, n_min, n_max, costs, ub,
+                                    aln_type=self.aln_type)[1] + 128
+        if width + 128 < shared_width and width < L:
+            req = _round_up(int(wstart.max()) + width, 128)
+            return width, prepare_banded_drift(
+                self.dg, costs, wstart, width, s_ranks, S, max(L, req))
+        return None, None
 
     def _fill_once(self, qshift, lengths, ub, n_min, n_max) -> np.ndarray:
         """One banded fill of the batch on shared windows at ``ub``: its
@@ -454,19 +472,20 @@ class BandedScorer:
         key = (n_min, n_max, ub, L)
         cached = self._prep_cache.get(key)
         if cached is None:
-            wstart, width, _, _ = band_windows(self.flat, n_min, n_max,
-                                               costs, ub,
-                                               aln_type=self.aln_type)
-            # 128-aligned starts keep the kernels' window reads aligned
-            wstart = (wstart // 128) * 128
-            width += 128
-            if width >= L:
-                # as wide as the row: every offset is in the window, so
-                # the fill is exact with zeroed starts
-                wstart = np.zeros_like(wstart)
-                width = L
-            q_len = max(L, _round_up(int(wstart.max()) + width, 128))
-            prep = prepare_banded(self.dg, costs, wstart, width, q_len)
+            with spans.span("ladder.prep"):
+                wstart, width, _, _ = band_windows(self.flat, n_min, n_max,
+                                                   costs, ub,
+                                                   aln_type=self.aln_type)
+                # 128-aligned starts keep the kernels' window reads aligned
+                wstart = (wstart // 128) * 128
+                width += 128
+                if width >= L:
+                    # as wide as the row: every offset is in the window, so
+                    # the fill is exact with zeroed starts
+                    wstart = np.zeros_like(wstart)
+                    width = L
+                q_len = max(L, _round_up(int(wstart.max()) + width, 128))
+                prep = prepare_banded(self.dg, costs, wstart, width, q_len)
             cached = (wstart, width, q_len, prep)
             self._prep_cache[key] = cached
         wstart, width, q_len, prep = cached
@@ -477,16 +496,17 @@ class BandedScorer:
         self._last_fill_exact = width >= L and int(wstart.max()) == 0
         max_run = 0 if self._last_fill_exact \
             else ins_run_cap(costs, ub, width)
-        q_in = qshift
-        if q_len > L:
-            q_in = torch.nn.functional.pad(qshift, (0, q_len - L))
-        if self.ends_free:
-            fs, end_ok, jlo = self._ef_params(lengths)
-            return ef_scores(self.dg, q_in, lengths, costs, prep, fs, end_ok,
-                             jlo, max_run=max_run).cpu().numpy()
-        fill = banded_scores_2p if costs.is_two_piece else banded_scores
-        return self._on_shards(key, fill, q_in, lengths, prep,
-                               max_run=max_run)
+        with spans.span("ladder.fill"):
+            q_in = qshift
+            if q_len > L:
+                q_in = torch.nn.functional.pad(qshift, (0, q_len - L))
+            if self.ends_free:
+                fs, end_ok, jlo = self._ef_params(lengths)
+                return ef_scores(self.dg, q_in, lengths, costs, prep, fs,
+                                 end_ok, jlo, max_run=max_run).cpu().numpy()
+            fill = banded_scores_2p if costs.is_two_piece else banded_scores
+            return self._on_shards(key, fill, q_in, lengths, prep,
+                                   max_run=max_run)
 
     def _on_shards(self, key, fill, q, lengths, *args,
                    **kwargs) -> np.ndarray:
@@ -530,8 +550,8 @@ class BandedScorer:
             # ends-free span (nor does poasta_tpu have one); otherwise
             # banding already proved unprofitable for this length profile
             self.stats["fills"] += 1
-            self.stats["cells_filled"] += (
-                self.flat.n_nodes * int(qshift.shape[1]) * int(qshift.shape[0]))
+            self._filled(self.flat.n_nodes * int(qshift.shape[1])
+                         * int(qshift.shape[0]))
             return self._full_scores(qshift, lengths, (n_min, n_max))
 
         # drift serves global spans and bounded ends-free spans; a free
@@ -565,65 +585,57 @@ class BandedScorer:
         # do not pay the whole batch's length spread
         cur_n_min, cur_n_max = n_min, n_max
         for attempt in range(max_retries):
-            sub = None
-            self._last_fill_exact = False  # set only by _fill_once
-            if drift_ok and cur_n_max - cur_n_min >= self.DRIFT_MIN_SPREAD:
-                sub = self._fill_once_drift(q_cur, l_cur, ub, cur_n_min,
-                                            cur_n_max)
-            if sub is None:
-                sub = self._fill_once(q_cur, l_cur, ub, cur_n_min, cur_n_max)
-            self.last_attempts += 1
-            self.stats["fills"] += 1
-            self.stats["tiers"] += 1
-            self.stats["cells_filled"] += (
-                self.flat.n_nodes * self._last_fill_width * int(q_cur.shape[0]))
-            if self._last_fill_exact:
-                done = np.ones_like(sub, dtype=bool)
-            else:
-                done = sub <= ub
-            out[map_idx[done]] = sub[done]
-            new_mask = np.zeros(B, dtype=bool)
-            new_mask[map_idx[done]] = True
-            tiers.append((ub, int((new_mask & ~resolved).sum())))
-            resolved |= new_mask
-            if done.all():
-                self._ub_hint[(n_min, n_max)] = self._cheapest_tier(
-                    tiers, n_min, n_max, B)
-                return out
-            rem = map_idx[~done]
-            # banded scores are upper bounds: ub = the max remaining score
-            # is sure to verify those reads next time, but a too-narrow
-            # band over-estimates wildly, so grow geometrically, capped by it
-            finite = sub[~done][sub[~done] < INF]
-            grown = max(ub * 2, ub + 256)
-            ub = min(int(finite.max()), grown) if finite.size else grown * 2
-            if use_mesh:
-                continue
-            # when the tail's scores spread wide, stopping this tier at a
-            # score quantile (the narrow bulk verifies now, the wide
-            # residue pays one more fill) may beat one max-width fill
-            if finite.size >= 4 and attempt + 3 <= max_retries:
-                ub = self._quantile_ub(finite, ub, grown, len(rem),
-                                       cur_n_min, cur_n_max)
-            idx_dev = torch.as_tensor(rem, device=qshift.device)
-            q_cur = qshift.index_select(0, idx_dev)
-            l_cur = lengths.index_select(0, idx_dev)
-            map_idx = rem
-            cur_n_min = int(lengths_np[rem].min())
-            cur_n_max = int(lengths_np[rem].max())
+            with spans.span("ladder.tier", attempt=attempt, ub=ub):
+                done, sub = self._tier(q_cur, l_cur, ub, cur_n_min,
+                                       cur_n_max, drift_ok)
+                with spans.span("ladder.verify"):
+                    out[map_idx[done]] = sub[done]
+                    new_mask = np.zeros(B, dtype=bool)
+                    new_mask[map_idx[done]] = True
+                    tiers.append((ub, int((new_mask & ~resolved).sum())))
+                    resolved |= new_mask
+            # the next call's first tier, or this call's next one
+            with spans.span("ladder.plan"):
+                if done.all():
+                    self._ub_hint[(n_min, n_max)] = self._cheapest_tier(
+                        tiers, n_min, n_max, B)
+                    return out
+                rem = map_idx[~done]
+                # banded scores are upper bounds: ub = the max remaining
+                # score is sure to verify those reads next time, but a
+                # too-narrow band over-estimates wildly, so grow
+                # geometrically, capped by it
+                finite = sub[~done][sub[~done] < INF]
+                grown = max(ub * 2, ub + 256)
+                ub = min(int(finite.max()), grown) if finite.size \
+                    else grown * 2
+                if use_mesh:
+                    continue
+                # when the tail's scores spread wide, stopping this tier at
+                # a score quantile (the narrow bulk verifies now, the wide
+                # residue pays one more fill) may beat one max-width fill
+                if finite.size >= 4 and attempt + 3 <= max_retries:
+                    ub = self._quantile_ub(finite, ub, grown, len(rem),
+                                           cur_n_min, cur_n_max)
+                idx_dev = torch.as_tensor(rem, device=qshift.device)
+                q_cur = qshift.index_select(0, idx_dev)
+                l_cur = lengths.index_select(0, idx_dev)
+                map_idx = rem
+                cur_n_min = int(lengths_np[rem].min())
+                cur_n_max = int(lengths_np[rem].max())
 
         self.stats["fullfill_fallbacks"] += 1
         if self.last_attempts > 0 and len(map_idx) < B:
             # the band resolved most of the batch: full-fill only the tail,
             # and start future calls at the tier that resolved the most
             self._ub_hint[(n_min, n_max)] = max(tiers, key=lambda t: t[1])[0]
-            self.stats["cells_filled"] += (
+            self._filled(
                 self.flat.n_nodes * int(q_cur.shape[1]) * int(q_cur.shape[0]))
             out[map_idx] = self._full_scores(q_cur, l_cur)
             return out
 
         self._prep_cache[("fullfill", n_min, n_max)] = True
-        self.stats["cells_filled"] += self.flat.n_nodes * int(qshift.shape[1]) * B
+        self._filled(self.flat.n_nodes * int(qshift.shape[1]) * B)
         scores = self._full_scores(qshift, lengths, (n_min, n_max))
         # the first guess may have been so loose that the band was wider
         # than the row; with the true max score known, re-enable banding
@@ -642,6 +654,25 @@ class BandedScorer:
                 self._ub_hint[(n_min, n_max)] = tight
                 del self._prep_cache[("fullfill", n_min, n_max)]
         return scores
+
+    def _tier(self, q, lengths, ub, n_min, n_max, drift_ok):
+        """One attempt of the ladder: (done, scores) of the reads ``q``,
+        done where a score verifies at ``ub`` (every read of an exact
+        full-width layout)."""
+        sub = None
+        self._last_fill_exact = False  # set only by _fill_once
+        if drift_ok and n_max - n_min >= self.DRIFT_MIN_SPREAD:
+            sub = self._fill_once_drift(q, lengths, ub, n_min, n_max)
+        if sub is None:
+            sub = self._fill_once(q, lengths, ub, n_min, n_max)
+        self.last_attempts += 1
+        self.stats["fills"] += 1
+        self.stats["tiers"] += 1
+        self._filled(self.flat.n_nodes * self._last_fill_width
+                     * int(q.shape[0]))
+        if self._last_fill_exact:
+            return np.ones_like(sub, dtype=bool), sub
+        return sub <= ub, sub
 
     def _width(self, n_min: int, n_max: int, ub: int) -> int:
         return band_windows(self.flat, n_min, n_max, self.costs, ub,

@@ -31,10 +31,16 @@ process group (a part lost to a failed process).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import sys
 
+from ..utils import spans
 from ..utils.device import NoDeviceError
 from ..utils.errors import PoastaError
+
+# the id of each chunk _flush_sorted aligns in this process (span attrs)
+_CHUNK_IDS = itertools.count()
 
 
 def span_of(name: str):
@@ -201,56 +207,81 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
 
     Pipelined batches: a worker thread scores batch k+1 while the main
     thread aligns batch k (scoring calls stay serialised on that one
-    thread: the scorer's caches are not written concurrently)."""
-    import time
-
+    thread: the scorer's caches are not written concurrently).  Spans:
+    ``lasagna.chunk`` over ``lasagna.sort``, per batch k
+    ``lasagna.prescore_wait`` (the main thread blocked on the scorer
+    thread) and ``lasagna.align``, then ``lasagna.emit``; the scorer
+    thread's spans take the chunk as parent and the batch they score.
+    ``verbose`` records them and prints the chunk's stage line."""
     from concurrent.futures import ThreadPoolExecutor
 
-    t0 = time.perf_counter()
-    order = sorted(range(len(chunk)), key=lambda i: len(chunk[i][1]))
-    results = [None] * len(chunk)
-    batches = [order[at:at + batch_size]
-               for at in range(0, len(order), batch_size)]
-    queries = [[chunk[i][1] for i in idxs] for idxs in batches]
-    traced = backtraced = 0
+    with spans.recording() if verbose else contextlib.nullcontext():
+        with spans.span("lasagna.chunk", chunk=next(_CHUNK_IDS)) as top:
+            with spans.span("lasagna.sort"):
+                order = sorted(range(len(chunk)),
+                               key=lambda i: len(chunk[i][1]))
+                batches = [order[at:at + batch_size]
+                           for at in range(0, len(order), batch_size)]
+                queries = [[chunk[i][1] for i in idxs] for idxs in batches]
+            results = [None] * len(chunk)
 
-    pipeline = len(batches) > 1 and mapper.supports_prescore(queries[0])
-    with ThreadPoolExecutor(max_workers=1) as scorer_thread:
-        fut = (scorer_thread.submit(mapper.prescore, queries[0])
-               if pipeline else None)
-        for k, idxs in enumerate(batches):
-            pre = fut.result() if fut is not None else None
-            if pipeline and k + 1 < len(batches):
-                fut = scorer_thread.submit(mapper.prescore, queries[k + 1])
-            else:
-                fut = None
-            out = mapper.align_batch(queries[k], prescored=pre)
-            traced += mapper.last_banded_stats["device_traced"]
-            backtraced += mapper.last_banded_stats["host_backtraced"]
-            for i, r in zip(idxs, out):
-                results[i] = r
-    for (name, seq), (score, alignment) in zip(chunk, results):
-        emit_record(name, seq, score, alignment)
+            def prescore(k):
+                with spans.attach(top, batch=k):
+                    return mapper.prescore(queries[k])
+
+            pipeline = len(batches) > 1 \
+                and mapper.supports_prescore(queries[0])
+            with ThreadPoolExecutor(max_workers=1) as scorer_thread:
+                fut = scorer_thread.submit(prescore, 0) if pipeline else None
+                for k, idxs in enumerate(batches):
+                    pre = None
+                    if fut is not None:
+                        with spans.span("lasagna.prescore_wait", batch=k):
+                            pre = fut.result()
+                    fut = scorer_thread.submit(prescore, k + 1) \
+                        if pipeline and k + 1 < len(batches) else None
+                    with spans.span("lasagna.align", batch=k):
+                        out = mapper.align_batch(queries[k], prescored=pre)
+                    for i, r in zip(idxs, out):
+                        results[i] = r
+            with spans.span("lasagna.emit"):
+                for (name, seq), (score, alignment) in zip(chunk, results):
+                    emit_record(name, seq, score, alignment)
     if verbose:
-        dt = time.perf_counter() - t0
-        s = mapper.scorer.stats
-        msg = (f"INFO: aligned {len(chunk)} reads in {dt:.2f}s (device "
-               f"fills: {s['fills']}, cells: {s['cells_filled']}, tiers: "
-               f"{s['tiers']}; device traced {traced}, host backtraced "
-               f"{backtraced})")
-        mapper.scorer.reset_stats()
-        ef = mapper.last_ends_free_stats
-        if ef:
-            msg += (f" [anchored path: device {ef['device_s']:.2f}s,"
-                    f" host {ef['host_s']:.2f}s,"
-                    f" ok {ef['anchored_ok']},"
-                    f" exact-fallback {ef['exact_fallback']}]")
-        sd = mapper.last_seed_stats
-        if sd:
-            msg += (f" [seeded corridors: {sd['seeded']} seeded,"
-                    f" {sd['seed_tail']} tail, k={sd['seed_k']},"
-                    f" attempts {sd.get('seed_attempts', 1)}]")
-        print(msg, file=sys.stderr)
+        print(stage_line(len(chunk), spans.drain()), file=sys.stderr)
+
+
+# the spans of a fill, each one launch (or one launch a shard) and its
+# readback
+FILL_SPANS = ("ladder.fill", "ladder.full_fill", "seed.fill", "trace.fill")
+
+
+def stage_line(n_reads: int, recorded: dict) -> str:
+    """``lasagna -v``'s line for one chunk, from what :func:`_flush_sorted`
+    recorded (``spans.drain()``): the wall, the host stages, the fills,
+    the alignment routes and the seeding outcome."""
+    secs, n = {}, {}
+    for s in recorded["spans"]:
+        secs[s.name] = secs.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e9
+        n[s.name] = n.get(s.name, 0) + 1
+    c = recorded["counts"]
+
+    def t(*names):
+        return sum(secs.get(name, 0.0) for name in names)
+
+    cells = sum(v for k, v in c.items() if k.startswith("cells."))
+    return (
+        f"INFO: aligned {n_reads} reads in {t('lasagna.chunk'):.2f}s "
+        f"(prescore wait {t('lasagna.prescore_wait'):.2f}s, align "
+        f"{t('lasagna.align'):.2f}s, emit {t('lasagna.emit'):.2f}s, seeding "
+        f"host {t('seed.hits', 'seed.clusters', 'seed.certify'):.2f}s, "
+        f"trace host {t('trace.inputs', 'trace.replay'):.2f}s; device "
+        f"fills: {sum(n.get(f, 0) for f in FILL_SPANS)}, cells: {cells}, "
+        f"tiers: {n.get('ladder.tier', 0)}; device traced "
+        f"{c.get('reads.device_traced', 0)}, host backtraced "
+        f"{c.get('reads.host_backtraced', 0)}; seeded "
+        f"{c.get('reads.seeded', 0)}, tail {c.get('reads.seed_tail', 0)}, "
+        f"certificate failed {c.get('reads.cert_failed', 0)})")
 
 
 def build_parser():

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..aligner.banded import ins_run_cap
-from ..utils import build
+from ..utils import build, spans
 from .cuda_fill import _check_operands, _prefix_min, _scan_cap, register_plan
 from .dp_rows import INF, _shift_right
 from .trace import _sched_potentials, _schedule_body
@@ -232,7 +232,8 @@ def seed_end_states(dg, qshift: torch.Tensor, wstarts: torch.Tensor,
 
     ``qshift``: (B, L) packed reads; ``wstarts``: (B, Np) window start per
     rank (:func:`range_window_starts`); ``r_begin``/``r_end``: (B,) each
-    read's rank range; all int32.
+    read's rank range; all int32.  Counts the cells it is handed, each
+    read's ranks x Wb, as ``cells.seed_fill``.
     """
     if qshift.device.type == "cuda":
         fn = _launch_seed
@@ -240,8 +241,13 @@ def seed_end_states(dg, qshift: torch.Tensor, wstarts: torch.Tensor,
         fn = seed_end_states_plain
     else:
         raise ValueError(f"no seed fill for device {qshift.device}")
-    return fn(dg, qshift, wstarts, lengths, jlo, r_begin, r_end, costs,
-              free_start, end_ok, Wb, max_run)
+    out = fn(dg, qshift, wstarts, lengths, jlo, r_begin, r_end, costs,
+             free_start, end_ok, Wb, max_run)
+    if spans.active():
+        # read after the launch: the caller waits for the kernel next
+        spans.count("cells.seed_fill",
+                    int((r_end - r_begin).clamp(min=0).sum()) * Wb)
+    return out
 
 
 seed_end_states.launches = 0

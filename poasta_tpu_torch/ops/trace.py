@@ -37,7 +37,7 @@ import os
 import numpy as np
 import torch
 
-from ..utils import build
+from ..utils import build, spans
 from ..utils.device import resolve_device
 from .cuda_fill import _check_operands, _prefix_min, register_plan
 from .dp_rows import INF
@@ -332,7 +332,11 @@ def trace_fill(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
                anchor_r: torch.Tensor, anchor_j: torch.Tensor, costs,
                Wb: int, free_start: bool = False):
     """(aval (B,), ptr (Np, B, Wb)): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor (see :func:`trace_fill_plain`)."""
+    plain version on a CPU tensor (see :func:`trace_fill_plain`).  Counts
+    the cells it is handed, ranks (Np) x reads x Wb, as
+    ``cells.trace_fill``."""
+    spans.count("cells.trace_fill",
+                dg.n_nodes_padded * int(qpad.shape[0]) * Wb)
     if qpad.device.type == "cuda":
         return _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs,
                              Wb, free_start)
@@ -610,40 +614,47 @@ def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
         k_tier, k_full = gap_budgets(flat, scores_np[pending], costs, Wb)
         at_k_full = bool((k_tier >= k_full).all())
         still = []
-        for idx in np.array_split(np.arange(pending.size), n_sub):
-            sub = pending[idx]
-            q_sub = qshift.index_select(0, torch.as_tensor(sub, device=dev))
-            inp, ok = tier_inputs(
-                dg, flat, q_sub, lengths_np[sub], k_tier[idx], Wb,
-                None if ar_np is None else ar_np[sub],
-                None if ar_np is None else aj_np[sub])
-            if not ok.any():
-                still.extend(sub)  # this width covers nobody here
-                continue
-            aval, ptr = trace_fill(dg, **inp, costs=costs, Wb=Wb,
-                                   free_start=free_start)
-            verified = (aval.cpu().numpy() == scores_np[sub]) & ok
-            if not verified.any():
-                still.extend(sub)
-                continue
-            t_max = int(-(-(int(lengths_np[sub].max())
-                            + int(k_full[idx].max()) + 8) // 512) * 512)
-            if pred_ranks is None:
-                pred_ranks = pred_rank_table(dg, dev)
-            ops, done = trace_decode(
-                ptr, pred_ranks, inp["wstarts"], inp["anchor_r"],
-                inp["anchor_j"], dg.end_rank_i,
-                torch.as_tensor(verified, device=dev), t_max)
-            del ptr
-            ops_np = ops.cpu().numpy()
-            done_np = done.cpu().numpy()
-            for i, b in enumerate(sub):
-                if verified[i] and done_np[i]:
-                    rpos, qpos = replay_steps(ops_np[i], int(aj_np[b]),
-                                              flat.node_of_rank)
-                    out[b] = ArrayAlignment(rpos, qpos)
-                else:
-                    still.append(b)
+        for s_i, idx in enumerate(np.array_split(np.arange(pending.size),
+                                                 n_sub)):
+            with spans.span("trace.sub_batch", wb=Wb, sub=s_i):
+                sub = pending[idx]
+                with spans.span("trace.inputs"):
+                    q_sub = qshift.index_select(
+                        0, torch.as_tensor(sub, device=dev))
+                    inp, ok = tier_inputs(
+                        dg, flat, q_sub, lengths_np[sub], k_tier[idx], Wb,
+                        None if ar_np is None else ar_np[sub],
+                        None if ar_np is None else aj_np[sub])
+                if not ok.any():
+                    still.extend(sub)  # this width covers nobody here
+                    continue
+                with spans.span("trace.fill"):
+                    aval, ptr = trace_fill(dg, **inp, costs=costs, Wb=Wb,
+                                           free_start=free_start)
+                    verified = (aval.cpu().numpy() == scores_np[sub]) & ok
+                if not verified.any():
+                    still.extend(sub)
+                    continue
+                t_max = int(-(-(int(lengths_np[sub].max())
+                                + int(k_full[idx].max()) + 8) // 512) * 512)
+                with spans.span("trace.decode"):
+                    if pred_ranks is None:
+                        pred_ranks = pred_rank_table(dg, dev)
+                    ops, done = trace_decode(
+                        ptr, pred_ranks, inp["wstarts"], inp["anchor_r"],
+                        inp["anchor_j"], dg.end_rank_i,
+                        torch.as_tensor(verified, device=dev), t_max)
+                    del ptr
+                    ops_np = ops.cpu().numpy()
+                    done_np = done.cpu().numpy()
+                with spans.span("trace.replay"):
+                    for i, b in enumerate(sub):
+                        if verified[i] and done_np[i]:
+                            rpos, qpos = replay_steps(
+                                ops_np[i], int(aj_np[b]), flat.node_of_rank)
+                            out[b] = ArrayAlignment(rpos, qpos)
+                        else:
+                            still.append(b)
         pending = np.asarray(still, dtype=np.int64)
         if at_k_full:
             break  # proven budgets already; wider tiers can't help

@@ -21,7 +21,6 @@ this one process, as one controller drives the reference's ``shard_map``:
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,6 +47,7 @@ from ..aligner.wavefront import (
 from ..ops.dp_rows import INF
 from ..ops.seed import seed_scores
 from ..ops.trace import trace_align, trace_enabled
+from ..utils import spans
 from ..utils.mesh import (
     Mesh,
     check_mesh,
@@ -267,17 +267,24 @@ class BatchMapper:
     def score_batch(self, queries) -> np.ndarray:
         """(B,) exact alignment scores of byte-string reads under the
         mapper's span."""
-        qshift, lengths = pack_queries(queries, device=self.dg.device)
-        if self.mesh is not None and self.ends_free:
-            return dp_fill_scores_ends_free(
-                self.dg, self.flat, qshift, lengths, self.costs,
-                self.aln_type, mesh=self.mesh).cpu().numpy()
-        if self.mesh is not None and not self.costs.is_two_piece:
-            if self._score_fn is None:
-                self._score_fn = make_sharded_score_fn(self.dg, self.costs,
-                                                       self.mesh)
-            return self._score_fn(qshift, lengths).cpu().numpy()
-        return self.scorer.scores(qshift, lengths)
+        with spans.span("mapper.score_batch"):
+            qshift, lengths = self._pack(queries)
+            if self.mesh is not None and self.ends_free:
+                return dp_fill_scores_ends_free(
+                    self.dg, self.flat, qshift, lengths, self.costs,
+                    self.aln_type, mesh=self.mesh).cpu().numpy()
+            if self.mesh is not None and not self.costs.is_two_piece:
+                if self._score_fn is None:
+                    self._score_fn = make_sharded_score_fn(
+                        self.dg, self.costs, self.mesh)
+                return self._score_fn(qshift, lengths).cpu().numpy()
+            return self.scorer.scores(qshift, lengths)
+
+    def _pack(self, queries):
+        """:func:`pack_queries` on the graph's device: packing and
+        upload."""
+        with spans.span("mapper.pack"):
+            return pack_queries(queries, device=self.dg.device)
 
     def _table_bytes(self, n_reads: int, L: int) -> int:
         return self.dg.n_nodes_padded * n_reads * L * 12
@@ -293,12 +300,16 @@ class BatchMapper:
         """
         if not queries:
             return []
+        with spans.span("mapper.align_batch"):
+            return self._align_batch(queries, prescored)
+
+    def _align_batch(self, queries, prescored):
         pre_scores = None
         if prescored is not None and prescored[0] is queries:
             # reuse the packed batch: re-packing would upload it again
             pre_scores, qshift, lengths = prescored[1:]
         else:
-            qshift, lengths = pack_queries(queries, device=self.dg.device)
+            qshift, lengths = self._pack(queries)
         if self.ends_free:
             return self._align_batch_ends_free(queries, qshift, lengths,
                                                pre_scores=pre_scores)
@@ -367,16 +378,14 @@ class BatchMapper:
         if self.ends_free:
             if not queries:
                 return None
-            self._init_banded()
-            qshift, lengths = pack_queries(queries, device=self.dg.device)
-            return (queries, self._ends_free_scores(queries, qshift, lengths),
-                    qshift, lengths)
-        if not self.takes_banded_path(queries):
+        elif not self.takes_banded_path(queries):
             return None
-        self._init_banded()
-        qshift, lengths = pack_queries(queries, device=self.dg.device)
-        return (queries, self._device_scores(qshift, lengths), qshift,
-                lengths)
+        with spans.span("mapper.prescore"):
+            self._init_banded()
+            qshift, lengths = self._pack(queries)
+            scores = self._ends_free_scores(queries, qshift, lengths) \
+                if self.ends_free else self._device_scores(qshift, lengths)
+            return queries, scores, qshift, lengths
 
     def _align_batch_banded(self, queries, qshift, lengths, scores=None):
         """Device traceback first: the trace kernel and decode rebuild
@@ -414,10 +423,13 @@ class BatchMapper:
 
             stats["host_backtraced"] = len(rest)
             workers = max(1, min(len(rest), os.cpu_count() or 4))
-            with ThreadPoolExecutor(max_workers=workers) as pool:
+            with spans.span("mapper.host_backtrace"), \
+                    ThreadPoolExecutor(max_workers=workers) as pool:
                 for b, res in zip(rest, pool.map(one, rest)):
                     out[b] = res
         self.last_banded_stats = stats
+        spans.count("reads.device_traced", stats["device_traced"])
+        spans.count("reads.host_backtraced", stats["host_backtraced"])
         return out
 
     # ---- ends-free spans ------------------------------------------------
@@ -443,11 +455,16 @@ class BatchMapper:
         """
         costs = self.costs
         L = int(qshift.shape[1])
+        cells = self.flat.n_nodes * L * int(qshift.shape[0])
 
         def fill(cap=0):
-            return tuple(t.cpu().numpy() for t in dp_fill_ends_free_with_ends(
-                self.dg, self.flat, qshift, lengths, costs, self.aln_type,
-                "auto", self.mesh, max_run=cap))
+            spans.count("cells.tail_fill", cells)
+            with spans.span("ladder.full_fill", cap=cap):
+                return tuple(t.cpu().numpy()
+                             for t in dp_fill_ends_free_with_ends(
+                                 self.dg, self.flat, qshift, lengths, costs,
+                                 self.aln_type, "auto", self.mesh,
+                                 max_run=cap))
 
         if not self._ef_cap_enabled():
             return fill()
@@ -548,7 +565,8 @@ class BatchMapper:
         if e <= 0:
             return None
         if self._seed_index is None:
-            self._seed_index = KmerIndex(self.flat)
+            with spans.span("seed.index"):
+                self._seed_index = KmerIndex(self.flat)
         idx = self._seed_index
         if not idx.ok:
             return None
@@ -557,8 +575,8 @@ class BatchMapper:
         # reads may end at offset ~1 can never certify
         if not (jlo_np - (idx.k - 1) > 0).any():
             return None
-        t0 = time.perf_counter()
-        hits = idx.seed_hits(qshift.cpu().numpy(), lengths_np)
+        with spans.span("seed.hits"):
+            hits = idx.seed_hits(qshift.cpu().numpy(), lengths_np)
         if hits is None:
             return None  # repeat blow-up
         B = lengths_np.shape[0]
@@ -568,8 +586,9 @@ class BatchMapper:
             (rate[0] * lengths_np + pad_c).astype(np.int64), ub_wide_np)
         # one proposal (the wide window admits every drift the wide tier
         # does); only the corridor margin differs between the tiers
-        a_star, b_star, n_cluster = propose_clusters(hits, ub_wide_np // e)
-        t_hits = time.perf_counter() - t0
+        with spans.span("seed.clusters"):
+            a_star, b_star, n_cluster = propose_clusters(hits,
+                                                         ub_wide_np // e)
         seedable = (n_cluster > 0) & hits.clean
         if not seedable.any():
             return None
@@ -577,7 +596,6 @@ class BatchMapper:
         er = np.zeros(B, dtype=np.int64)
         ej = np.zeros(B, dtype=np.int64)
         resolved = np.zeros(B, dtype=bool)
-        t_fill = t_cert = 0.0
         n_cert_failed = n_unverified = attempts = 0
         tiers = [ub_tight_np]
         if (ub_wide_np > ub_tight_np).any():
@@ -586,29 +604,24 @@ class BatchMapper:
             act = np.nonzero(seedable & ~resolved)[0]
             if act.size == 0:
                 break
-            if act.size == B:
-                q_sub, hits_sub = qshift, hits
-            else:
-                q_sub = qshift.index_select(
-                    0, torch.as_tensor(act, device=qshift.device))
-                hits_sub = subset_hits(hits, act)
             ub_sub, jlo_sub = ub_arr[act], jlo_np[act]
             a_sub, b_sub = a_star[act], b_star[act]
-            t0 = time.perf_counter()
-            res = seed_scores(self.dg, self.flat, q_sub, lengths_np[act],
-                              self.costs, free_start, end_ok, jlo_sub, a_sub,
-                              b_sub, ub_sub)
-            t_fill += time.perf_counter() - t0
+            with spans.span("seed.fill", tier=t_i):
+                q_sub = qshift if act.size == B else qshift.index_select(
+                    0, torch.as_tensor(act, device=qshift.device))
+                res = seed_scores(self.dg, self.flat, q_sub, lengths_np[act],
+                                  self.costs, free_start, end_ok, jlo_sub,
+                                  a_sub, b_sub, ub_sub)
             if res is None:
                 break  # the width budget: a wider tier cannot help
             attempts += 1
             s_s, er_s, ej_s, ok_s = res
-            t0 = time.perf_counter()
-            verified = ok_s & (s_s <= ub_sub)
-            certified, _ = certify_reads(
-                hits_sub, a_sub, b_sub, np.where(verified, s_s, -1),
-                ub_sub // e, idx.k, jlo_sub, self.costs, idx.all_acgt)
-            t_cert += time.perf_counter() - t0
+            with spans.span("seed.certify", tier=t_i):
+                hits_sub = hits if act.size == B else subset_hits(hits, act)
+                verified = ok_s & (s_s <= ub_sub)
+                certified, _ = certify_reads(
+                    hits_sub, a_sub, b_sub, np.where(verified, s_s, -1),
+                    ub_sub // e, idx.k, jlo_sub, self.costs, idx.all_acgt)
             done = verified & certified
             sc[act[done]] = s_s[done]
             er[act[done]] = er_s[done]
@@ -623,17 +636,18 @@ class BatchMapper:
             "seed_ub": [round(float(rate[0]), 4), round(float(rate[1]), 4)],
             "seed_k": idx.k, "seed_attempts": attempts,
             "cert_failed": n_cert_failed, "unverified": n_unverified,
-            "no_cluster": int((~seedable).sum()),
-            "hits_s": round(t_hits, 4), "fill_s": round(t_fill, 4),
-            "cert_s": round(t_cert, 4)}
+            "no_cluster": int((~seedable).sum())}
+        for key in ("seeded", "seed_tail", "cert_failed", "unverified"):
+            spans.count("reads." + key, self.last_seed_stats[key])
         if not resolved.any():
             return None
         tail = np.nonzero(~resolved)[0]
         if tail.size:
-            at = torch.as_tensor(tail, device=qshift.device)
-            sc[tail], er[tail], ej[tail] = self._fill_ends_free_capped(
-                qshift.index_select(0, at), lengths.index_select(0, at),
-                lengths_np[tail])
+            with spans.span("seed.tail", reads=int(tail.size)):
+                at = torch.as_tensor(tail, device=qshift.device)
+                sc[tail], er[tail], ej[tail] = self._fill_ends_free_capped(
+                    qshift.index_select(0, at), lengths.index_select(0, at),
+                    lengths_np[tail])
         self._learn_seed_ub(lengths_np, sc)
         return sc, er, ej
 
@@ -653,18 +667,14 @@ class BatchMapper:
         self._init_banded()
         native = self._native
         free_start = self.aln_type.graph_free_begin[0] == "unbounded"
-        t0 = time.perf_counter()
         sc, er, ej = pre_scores if pre_scores is not None \
             else self._ends_free_scores(queries, qshift, lengths)
-        stats = {"device_s": time.perf_counter() - t0, "anchored_ok": 0,
-                 "exact_fallback": 0, "host_s": 0.0, "device_traced": 0}
+        stats = {"anchored_ok": 0, "exact_fallback": 0, "device_traced": 0}
         traced = [None] * len(queries)
         if not self.costs.is_two_piece and trace_enabled():
-            t1 = time.perf_counter()
             traced = trace_align(self.dg, self.flat, qshift, lengths,
                                  self.costs, sc, anchor_r=er, anchor_j=ej,
                                  free_start=free_start)
-            stats["device_s"] += time.perf_counter() - t1
             stats["device_traced"] = sum(a is not None for a in traced)
         node_of_rank = self.flat.node_of_rank
 
@@ -685,13 +695,14 @@ class BatchMapper:
                     f"{int(ej[b])}): {exc}") from exc
 
         workers = max(1, min(len(queries), os.cpu_count() or 4))
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=workers) as pool:
+        with spans.span("mapper.anchored_host"), \
+                ThreadPoolExecutor(max_workers=workers) as pool:
             out = list(pool.map(one, range(len(queries))))
-        stats["host_s"] = time.perf_counter() - t0
         stats["anchored_ok"] = len(out)
         self.last_ends_free_stats = stats
         self.last_banded_stats = {
             "device_traced": stats["device_traced"],
             "host_backtraced": len(out) - stats["device_traced"]}
+        spans.count("reads.device_traced", stats["device_traced"])
+        spans.count("reads.host_backtraced", len(out) - stats["device_traced"])
         return out

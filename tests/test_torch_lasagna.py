@@ -12,6 +12,7 @@ on the CPU here because every call names it (``device="cpu"``,
 
 import os
 import random
+import re
 import subprocess
 import sys
 
@@ -197,14 +198,18 @@ def test_cli_span_gaf_byte_equal(span, seed_mode, pipelined, tmp_path,
     text = out_p.read_text()
     assert len(text.splitlines()) == len(reads)
     assert text == out_j.read_text()
-    err = capsys.readouterr().err
-    assert "[anchored path: device" in err and "exact-fallback 0]" in err
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines()
+               if ln.startswith("INFO: aligned ")]
+    traced = int(re.search(r"device traced (\d+)", line).group(1))
+    host = int(re.search(r"host backtraced (\d+)", line).group(1))
+    assert traced + host == len(reads)
+    n_seeded = int(re.search(r"; seeded (\d+), tail (\d+)", line).group(1))
     assert len(seeded) == 2
     if span == "semi-global" and seed_mode == "all":
         assert seeded[0] is None and seeded[1]["seeded"] >= 3
-        assert "[seeded corridors: " in err
+        assert n_seeded == seeded[1]["seeded"]
     else:
-        assert seeded == [None, None] and "[seeded corridors" not in err
+        assert seeded == [None, None] and n_seeded == 0
 
 
 def test_cli_exact_engine_runs_dijkstra_under_free_ends(tmp_path):

@@ -1,0 +1,290 @@
+"""The port's recorder (``poasta_tpu_torch.utils.spans``) on the CPU: off
+it records nothing; under ``torch.profiler`` it records spans of every
+thread with their parents and attributes and adds no row of its own to
+the profiler's trace; ``lasagna``'s batch loop yields its spans in order;
+the cell counters equal the launch arithmetic of the fills made; ``lasagna
+-v`` prints its stage line and leaves the scorer's counters alone."""
+
+import random
+import re
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from poasta_tpu_torch import BatchMapper
+from poasta_tpu_torch.aligner import GapAffine
+from poasta_tpu_torch.cli import lasagna
+from poasta_tpu_torch.graphs import POAGraph
+from poasta_tpu_torch.io.gfa import graph_to_gfa
+from poasta_tpu_torch.ops import seed as seed_mod
+from poasta_tpu_torch.ops import trace as trace_mod
+from poasta_tpu_torch.parallel import mapper as mapper_mod
+from poasta_tpu_torch.utils import spans
+
+torch.set_num_threads(1)
+
+COSTS = GapAffine(4, 2, 6)
+
+
+@pytest.fixture(autouse=True)
+def empty_recorder():
+    spans.drain()
+    yield
+    spans.drain()
+
+
+def _mutate(rng, s, d):
+    out = []
+    for ch in s:
+        r = rng.random()
+        if r < d:
+            continue
+        out.append(rng.choice("ACGT") if r < 2 * d else ch)
+    return "".join(out) or "A"
+
+
+def _mapping_workload(seed=53, n=700, n_reads=8, read_len=240):
+    """A linear graph with skip edges and reads cut from it at 2%, one of
+    them random (it fails its certificate: a seeded tail)."""
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(n))
+    g = POAGraph()
+    g.add_alignment_with_weights("s0", base.encode(), None, [1] * n)
+    for v in range(0, n - 3, 97):
+        g.add_edge(v, v + 3, 0, 1)
+    g.post_process()
+    reads = []
+    for _ in range(n_reads):
+        a = rng.randrange(0, n - read_len)
+        reads.append(_mutate(rng, base[a:a + read_len - rng.randrange(30)],
+                             0.02).encode())
+    reads[2] = "".join(rng.choice("ACGT") for _ in range(160)).encode()
+    return g, reads
+
+
+def _semi_mapper(g):
+    return BatchMapper(g, COSTS, batch_size=4, device="cpu",
+                       aln_type=lasagna.span_of("semi-global"))
+
+
+def _chunk(reads):
+    return [(f"r{i}", r) for i, r in enumerate(reads)]
+
+
+def test_off_records_nothing():
+    assert not spans.active()
+    off = spans.span("t.off", chunk=1)
+    assert spans.span("t.other") is off  # no object made
+    with off as sp:
+        assert sp is None
+        spans.count("t.n", 3)
+        assert spans.attach(sp, batch=1) is off
+    assert spans.drain() == {"spans": [], "counts": {}}
+
+
+def test_profiler_records_every_thread_and_adds_no_row():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert spans.active()
+        with spans.span("t.main", chunk=7) as top:
+            def work():
+                with spans.attach(top, batch=3):
+                    with spans.span("t.worker", x=1) as sp:
+                        spans.count("t.n", 2)
+                        return sp, threading.get_ident()
+
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                worker, tid = pool.submit(work).result()
+    assert not spans.active()
+    rec = spans.drain()
+    assert [s.name for s in rec["spans"]] == ["t.worker", "t.main"]
+    main = rec["spans"][1]
+    assert main is top and main.parent is None
+    assert main.thread == threading.get_ident() and main.attrs == {"chunk": 7}
+    assert worker.parent == main.id and worker.thread == tid != main.thread
+    assert worker.attrs == {"chunk": 7, "batch": 3, "x": 1}
+    assert main.start_ns <= worker.start_ns <= worker.end_ns <= main.end_ns
+    assert rec["counts"] == {"t.n": 2}
+    names = {ev.name for ev in prof.events()}
+    assert not names & {"t.main", "t.worker"}
+
+
+def test_flush_sorted_spans_in_order(monkeypatch):
+    """``_flush_sorted`` on a small semi-global graph, pipelined: one
+    ``lasagna.chunk`` over ``lasagna.sort``, per batch a
+    ``lasagna.prescore_wait`` and a ``lasagna.align``, then one
+    ``lasagna.emit``; the scorer thread's ``mapper.prescore`` spans take
+    the chunk as parent and the batch they score.  No profiler row bears
+    a program span's name."""
+    monkeypatch.setenv("POASTA_SEED", "all")
+    monkeypatch.setattr(mapper_mod.os, "cpu_count", lambda: 2)
+    g, reads = _mapping_workload(n=300, read_len=120)
+    mapper = _semi_mapper(g)
+    emitted = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        lasagna._flush_sorted(mapper, _chunk(reads), 4,
+                              lambda *rec: emitted.append(rec[0]))
+    rec = spans.drain()
+    assert sorted(emitted) == sorted(f"r{i}" for i in range(len(reads)))
+    by_id = {s.id: s for s in rec["spans"]}
+    (chunk,) = [s for s in rec["spans"] if s.name == "lasagna.chunk"]
+    assert chunk.parent is None
+    kids = sorted((s for s in rec["spans"] if s.parent == chunk.id
+                   and s.thread == chunk.thread), key=lambda s: s.start_ns)
+    assert [(s.name, s.attrs.get("batch")) for s in kids] == [
+        ("lasagna.sort", None),
+        ("lasagna.prescore_wait", 0), ("lasagna.align", 0),
+        ("lasagna.prescore_wait", 1), ("lasagna.align", 1),
+        ("lasagna.emit", None)]
+    pre = sorted((s for s in rec["spans"] if s.name == "mapper.prescore"),
+                 key=lambda s: s.start_ns)
+    assert [s.attrs for s in pre] == [
+        {"chunk": chunk.attrs["chunk"], "batch": k} for k in (0, 1)]
+    assert all(s.parent == chunk.id and s.thread != chunk.thread
+               for s in pre)
+    # every span lies inside its parent, and the names are the layers'
+    for s in rec["spans"]:
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    names = {s.name for s in rec["spans"]}
+    assert {"mapper.align_batch", "mapper.pack", "seed.hits",
+            "seed.clusters", "seed.fill", "seed.certify", "trace.sub_batch",
+            "trace.inputs", "trace.fill", "trace.decode", "trace.replay",
+            "mapper.anchored_host"} <= names
+    assert not names & {ev.name for ev in prof.events()}
+
+
+def test_cell_counters_equal_the_launch_arithmetic(monkeypatch):
+    """``cells.trace_fill``, ``cells.seed_fill`` and ``cells.tail_fill``
+    against the planes each trace fill returned, each seed fill's rank
+    ranges times its width, and ranks x padded length x reads of each
+    capped full fill, every cap retry included (the capped ladder driven
+    on the CPU)."""
+    monkeypatch.setenv("POASTA_SEED", "all")
+    monkeypatch.setattr(mapper_mod.BatchMapper, "_ef_cap_enabled",
+                        lambda self: True)
+    want = {"cells.trace_fill": 0, "cells.seed_fill": 0,
+            "cells.tail_fill": 0}
+    calls = {k: 0 for k in want}
+    real_trace, real_seed = trace_mod.trace_fill, seed_mod.seed_end_states
+    real_full = mapper_mod.dp_fill_ends_free_with_ends
+
+    def trace_fill(*args, **kwargs):
+        aval, ptr = real_trace(*args, **kwargs)
+        want["cells.trace_fill"] += ptr.numel()
+        calls["cells.trace_fill"] += 1
+        return aval, ptr
+
+    def seed_end_states(dg, qshift, wstarts, lengths, jlo, r_begin, r_end,
+                        costs, free_start, end_ok, Wb, max_run=0):
+        span = (r_end.numpy().astype(np.int64)
+                - r_begin.numpy().astype(np.int64))
+        want["cells.seed_fill"] += int(np.clip(span, 0, None).sum()) * Wb
+        calls["cells.seed_fill"] += 1
+        return real_seed(dg, qshift, wstarts, lengths, jlo, r_begin, r_end,
+                         costs, free_start, end_ok, Wb, max_run)
+
+    def full_fill(dg, flat, qshift, *args, **kwargs):
+        B, L = qshift.shape
+        want["cells.tail_fill"] += flat.n_nodes * L * B
+        calls["cells.tail_fill"] += 1
+        return real_full(dg, flat, qshift, *args, **kwargs)
+
+    monkeypatch.setattr(trace_mod, "trace_fill", trace_fill)
+    monkeypatch.setattr(seed_mod, "seed_end_states", seed_end_states)
+    monkeypatch.setattr(mapper_mod, "dp_fill_ends_free_with_ends", full_fill)
+    g, reads = _mapping_workload()
+    mapper = _semi_mapper(g)
+    with spans.recording():
+        mapper.align_batch(reads[:4])  # learns the seed rates
+        mapper.align_batch(reads[:4])  # seeds; the random read is the tail
+        mapper.align_batch(reads[4:])
+    counts = spans.drain()["counts"]
+    assert {k: counts[k] for k in want} == want
+    assert min(calls.values()) > 0
+    # the first batch's full fill verifies at a first cap or retries
+    assert calls["cells.tail_fill"] >= 2
+    assert counts["reads.seed_tail"] >= 1
+    assert counts["reads.seeded"] + counts["reads.seed_tail"] == 8
+
+
+def _cli_inputs(tmp_path, g, reads):
+    gfa, fa = tmp_path / "graph.gfa", tmp_path / "reads.fa"
+    with open(gfa, "w") as fh:
+        graph_to_gfa(g, fh)
+    fa.write_text("".join(f">r{i}\n{r.decode()}\n"
+                          for i, r in enumerate(reads)))
+    return str(gfa), str(fa)
+
+
+def test_lasagna_verbose_stage_line(tmp_path, monkeypatch, capsys):
+    """``lasagna -v`` on the global banded route prints one stage line a
+    chunk and leaves ``mapper.scorer.stats`` as a run without ``-v`` does;
+    the line's tiers are the scorer's, its reads the traced and
+    backtraced ones."""
+    monkeypatch.setattr(BatchMapper, "DENSE_TABLE_BUDGET", 0)
+    made = []
+    real_init = BatchMapper.__init__
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(BatchMapper, "__init__", init)
+    g, reads = _mapping_workload(seed=59, n_reads=6)
+    gfa, fa = _cli_inputs(tmp_path, g, reads)
+    base = ["align", gfa, fa, "-j", "2", "--device", "cpu"]
+    assert lasagna.main(base + ["-o", str(tmp_path / "a.gaf")]) == 0
+    capsys.readouterr()
+    assert lasagna.main(base + ["-o", str(tmp_path / "b.gaf"), "-v"]) == 0
+    quiet, loud = (m.scorer.stats for m in made)
+    assert loud == quiet and loud["fills"] > 0
+    assert (tmp_path / "a.gaf").read_text() == (tmp_path / "b.gaf").read_text()
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines()
+               if ln.startswith("INFO: aligned ")]
+    m = re.fullmatch(
+        r"INFO: aligned 6 reads in [\d.]+s \(prescore wait [\d.]+s, align "
+        r"[\d.]+s, emit [\d.]+s, seeding host [\d.]+s, trace host [\d.]+s; "
+        r"device fills: (\d+), cells: (\d+), tiers: (\d+); device traced "
+        r"(\d+), host backtraced (\d+); seeded 0, tail 0, certificate "
+        r"failed 0\)", line)
+    assert m, line
+    fills, cells, tiers, traced, host = map(int, m.groups())
+    assert tiers == loud["tiers"] and fills >= loud["fills"]
+    assert cells > loud["cells_filled"]  # the trace fills' cells beside
+    assert traced + host == 6 and traced > 0
+    assert not spans.active()
+
+
+def test_counts_and_spans_from_many_threads():
+    """Threads past the cores, switching often: no count and no span
+    lost."""
+    n_threads, n_each = 16, 400
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with spans.recording(), spans.span("t.root") as root:
+            def work(t):
+                with spans.attach(root, worker=t):
+                    for _ in range(n_each):
+                        spans.count("t.n")
+                        with spans.span("t.leaf"):
+                            pass
+            with ThreadPoolExecutor(max_workers=n_threads) as pool:
+                for fut in [pool.submit(work, t) for t in range(n_threads)]:
+                    fut.result(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    rec = spans.drain()
+    assert rec["counts"] == {"t.n": n_threads * n_each}
+    leaves = [s for s in rec["spans"] if s.name == "t.leaf"]
+    assert len(leaves) == n_threads * n_each
+    assert all(s.parent == root.id for s in leaves)
+    assert sorted({s.attrs["worker"] for s in leaves}) == list(
+        range(n_threads))
