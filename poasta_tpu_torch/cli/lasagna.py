@@ -207,13 +207,23 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
 
     Pipelined batches: a worker thread scores batch k+1 while the main
     thread aligns batch k (scoring calls stay serialised on that one
-    thread: the scorer's caches are not written concurrently).  Spans:
+    thread: the scorer's caches are not written concurrently).  The reads
+    the seeded corridors leave unresolved join the chunk's
+    :class:`~..parallel.mapper.TailPool`; once the last batch is scored,
+    the worker fills them all in one launch while the main thread aligns
+    that batch, and the main thread then aligns the pool.  Spans:
     ``lasagna.chunk`` over ``lasagna.sort``, per batch k
     ``lasagna.prescore_wait`` (the main thread blocked on the scorer
-    thread) and ``lasagna.align``, then ``lasagna.emit``; the scorer
-    thread's spans take the chunk as parent and the batch they score.
-    ``verbose`` records them and prints the chunk's stage line."""
+    thread) and ``lasagna.align``, for a pool its ``lasagna.prescore_wait``
+    (attr ``batch`` "pool") and ``lasagna.align_pool``, then
+    ``lasagna.emit``; the scorer thread's spans take the chunk as parent
+    and the batch they score.  ``verbose`` records them and prints the
+    chunk's stage line."""
     from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ..parallel.mapper import TailPool
 
     with spans.recording() if verbose else contextlib.nullcontext():
         with spans.span("lasagna.chunk", chunk=next(_CHUNK_IDS)) as top:
@@ -224,10 +234,16 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
                            for at in range(0, len(order), batch_size)]
                 queries = [[chunk[i][1] for i in idxs] for idxs in batches]
             results = [None] * len(chunk)
+            pool = TailPool()
+            pooled = []  # the chunk rows of the pool's reads, in its order
 
             def prescore(k):
                 with spans.attach(top, batch=k):
-                    return mapper.prescore(queries[k])
+                    return mapper.prescore(queries[k], pool=pool)
+
+            def fill_pool():
+                with spans.attach(top):
+                    return mapper.fill_tail_pool(pool)
 
             pipeline = len(batches) > 1 \
                 and mapper.supports_prescore(queries[0])
@@ -238,11 +254,24 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
                     if fut is not None:
                         with spans.span("lasagna.prescore_wait", batch=k):
                             pre = fut.result()
-                    fut = scorer_thread.submit(prescore, k + 1) \
-                        if pipeline and k + 1 < len(batches) else None
+                    fut = None
+                    if pipeline and k + 1 < len(batches):
+                        fut = scorer_thread.submit(prescore, k + 1)
+                    elif pipeline and pool.reads:
+                        # every batch is scored: the pool is whole
+                        fut = scorer_thread.submit(fill_pool)
                     with spans.span("lasagna.align", batch=k):
                         out = mapper.align_batch(queries[k], prescored=pre)
-                    for i, r in zip(idxs, out):
+                    rows = TailPool.deferred(pre)
+                    pooled += [idxs[b] for b in rows]
+                    for i, r in zip(np.delete(idxs, rows), out, strict=True):
+                        results[i] = r
+                if fut is not None:
+                    with spans.span("lasagna.prescore_wait", batch="pool"):
+                        pre = fut.result()
+                    with spans.span("lasagna.align_pool", reads=len(pooled)):
+                        out = mapper.align_batch(pool.reads, prescored=pre)
+                    for i, r in zip(pooled, out, strict=True):
                         results[i] = r
             with spans.span("lasagna.emit"):
                 for (name, seq), (score, alignment) in zip(chunk, results):
@@ -281,7 +310,8 @@ def stage_line(n_reads: int, recorded: dict) -> str:
         f"{c.get('reads.device_traced', 0)}, host backtraced "
         f"{c.get('reads.host_backtraced', 0)}; seeded "
         f"{c.get('reads.seeded', 0)}, tail {c.get('reads.seed_tail', 0)}, "
-        f"certificate failed {c.get('reads.cert_failed', 0)})")
+        f"certificate failed {c.get('reads.cert_failed', 0)}, pooled "
+        f"{c.get('reads.tail_pooled', 0)})")
 
 
 def build_parser():

@@ -57,8 +57,30 @@ from ..utils.mesh import (
     parse_mesh_spec,
 )
 
-__all__ = ["BatchMapper", "Mesh", "make_mesh", "make_sharded_score_fn",
-           "parse_mesh_spec"]
+__all__ = ["BatchMapper", "Mesh", "TailPool", "make_mesh",
+           "make_sharded_score_fn", "parse_mesh_spec"]
+
+
+class TailPool:
+    """The reads of several batches that their seeded corridors left
+    unresolved, gathered for one capped full fill.
+
+    ``lasagna``'s chunk loop owns one a chunk: ``prescore(queries,
+    pool=pool)`` appends each batch's unresolved reads in row order instead
+    of filling them, and :meth:`BatchMapper.fill_tail_pool` fills them all
+    in one launch (one thread block a read, so one read alone leaves all
+    but one SM idle).  Only the thread that scores writes it."""
+
+    def __init__(self):
+        self.reads: list = []
+
+    @staticmethod
+    def deferred(token) -> np.ndarray:
+        """The rows of a :meth:`BatchMapper.prescore` token whose reads
+        joined a pool (none for a token made without one)."""
+        if token is None or len(token) < 5:
+            return np.zeros(0, dtype=np.int64)
+        return token[4]
 
 
 def _sp_scan_rows(dg: DeviceGraph, qshift: torch.Tensor,
@@ -296,7 +318,10 @@ class BatchMapper:
         host backtraces them.  Past :data:`DENSE_TABLE_BUDGET`, and at any
         size under two-piece costs (the dense tables are one-piece): exact
         banded scores, then the traceback (see :meth:`_align_batch_banded`).
-        ``prescored`` is :meth:`prescore`'s token for this batch.
+        ``prescored`` is :meth:`prescore`'s token for this batch; where
+        that call deferred reads to a :class:`TailPool`, the list holds
+        the other reads alone, in order (:meth:`TailPool.deferred` names
+        the rows left out; :meth:`fill_tail_pool`'s token aligns them).
         """
         if not queries:
             return []
@@ -307,7 +332,16 @@ class BatchMapper:
         pre_scores = None
         if prescored is not None and prescored[0] is queries:
             # reuse the packed batch: re-packing would upload it again
-            pre_scores, qshift, lengths = prescored[1:]
+            pre_scores, qshift, lengths = prescored[1:4]
+            deferred = TailPool.deferred(prescored)
+            if deferred.size:
+                # the resolved rows alone: the pool's token aligns the rest
+                keep = np.setdiff1d(np.arange(len(queries)), deferred)
+                at = torch.as_tensor(keep, device=qshift.device)
+                queries = [queries[b] for b in keep]
+                qshift = qshift.index_select(0, at)
+                lengths = lengths.index_select(0, at)
+                pre_scores = tuple(a[keep] for a in pre_scores)
         else:
             qshift, lengths = self._pack(queries)
         if self.ends_free:
@@ -366,7 +400,7 @@ class BatchMapper:
         L = ((maxlen + 1 + 127) // 128) * 128  # pack_queries' padding rule
         return self._table_bytes(len(queries), L) > self.DENSE_TABLE_BUDGET
 
-    def prescore(self, queries):
+    def prescore(self, queries, pool=None):
         """Run the scoring phase of a batch ahead of time.
 
         Returns a token for ``align_batch(prescored=...)``, or None when
@@ -374,6 +408,11 @@ class BatchMapper:
         ends-free span the token carries (scores, end ranks, end offsets).
         Safe against a concurrent :meth:`align_batch` of another prescored
         batch, not against concurrent prescore calls.
+
+        ``pool``: a :class:`TailPool` that the caller fills with
+        :meth:`fill_tail_pool` once its last batch is prescored.  The reads
+        the seeded corridors leave unresolved then join it unfilled, and
+        the token ends with their rows.
         """
         if self.ends_free:
             if not queries:
@@ -383,9 +422,30 @@ class BatchMapper:
         with spans.span("mapper.prescore"):
             self._init_banded()
             qshift, lengths = self._pack(queries)
-            scores = self._ends_free_scores(queries, qshift, lengths) \
-                if self.ends_free else self._device_scores(qshift, lengths)
-            return queries, scores, qshift, lengths
+            if not self.ends_free:
+                return queries, self._device_scores(qshift, lengths), \
+                    qshift, lengths
+            if pool is None:
+                return queries, self._ends_free_scores(
+                    queries, qshift, lengths), qshift, lengths
+            sc, er, ej, deferred = self._ends_free_scores(
+                queries, qshift, lengths, pool)
+            return queries, (sc, er, ej), qshift, lengths, deferred
+
+    def fill_tail_pool(self, pool):
+        """Prescore's token for ``align_batch(pool.reads, prescored=...)``:
+        one capped full fill (:meth:`_fill_ends_free_capped`, its ladder and
+        ub hints) over every read of ``pool``, repacked from the reads (each
+        batch padded its own).  Exact per read whichever reads share the
+        fill: the cap argument of :func:`..aligner.banded.ins_run_cap` and
+        the end-state tie-breaks hold read by read."""
+        with spans.span("seed.tail_pool", reads=len(pool.reads)):
+            spans.count("reads.tail_pooled", len(pool.reads))
+            qshift, lengths = self._pack(pool.reads)
+            lengths_np = np.fromiter((len(q) for q in pool.reads),
+                                     dtype=np.int64, count=len(pool.reads))
+            scores = self._fill_ends_free_capped(qshift, lengths, lengths_np)
+        return pool.reads, scores, qshift, lengths
 
     def _align_batch_banded(self, queries, qshift, lengths, scores=None):
         """Device traceback first: the trace kernel and decode rebuild
@@ -491,7 +551,7 @@ class BatchMapper:
             self._ef_ub_hint[key] = vmax
         return out
 
-    def _ends_free_scores(self, queries, qshift, lengths):
+    def _ends_free_scores(self, queries, qshift, lengths, pool=None):
         """(scores, end_ranks, end_offsets), numpy: the seeded corridor
         fill where it is provably exact and pays, the full bounded fill
         otherwise and for the reads the corridors leave unresolved.  Either
@@ -499,7 +559,11 @@ class BatchMapper:
         seeded fill propagates; it returns None only to route.  Two-piece
         costs and a mesh always take the full fill and learn nothing,
         whatever ``POASTA_SEED`` says (the corridors and their certificate
-        are one-piece and single-device, as in ``poasta_tpu``)."""
+        are one-piece and single-device, as in ``poasta_tpu``).
+
+        With a :class:`TailPool` the unresolved reads join ``pool``
+        unfilled (their scores INF) and a fourth array, their rows, comes
+        back beside the three."""
         mode = "0" if self.costs.is_two_piece or self.mesh is not None \
             else os.environ.get("POASTA_SEED", "")
         lengths_np = np.fromiter((len(q) for q in queries), dtype=np.int64,
@@ -507,14 +571,16 @@ class BatchMapper:
         out = None
         if mode != "0":
             out = self._fill_ends_free_seeded(qshift, lengths, lengths_np,
-                                              mode)
+                                              mode, queries, pool)
         if out is None:
             out = self._fill_ends_free_capped(qshift, lengths, lengths_np)
             if mode != "0":
                 self._learn_seed_ub(lengths_np, out[0])
+            if pool is not None:
+                out = (*out, np.zeros(0, dtype=np.int64))
         return out
 
-    def _learn_seed_ub(self, lengths_np, scores) -> None:
+    def _learn_seed_ub(self, lengths_np, scores, deferred=None) -> None:
         """Learn per-character score rates from a batch's scores.  Rates,
         not scores: streaming batches are sorted by length, so each has its
         own (n_min, n_max), and a bound per read scales with its length.
@@ -523,23 +589,41 @@ class BatchMapper:
         corridor margin, and with it the corridor width; reads above it
         retry at ``wide`` (the 90th percentile and 25%); only reads above
         that pay the full fill.  Percentiles keep one outlier read from
-        widening every later batch's corridors."""
+        widening every later batch's corridors.
+
+        ``deferred``: rows whose scores a :class:`TailPool` fills later.
+        The next batch's corridors need the rates now, so each such read
+        counts at rate +inf, above every score known.  Where the deferred
+        reads are the batch's highest rates (the usual case: the tail is
+        the divergent reads) and no percentile index falls on one of them,
+        the sorted rates at both indices are the ones the full scores give:
+        the same rates.  Otherwise each order statistic can only rise (a
+        value raised to +inf, or a read the full scores leave out as INF
+        counted at the top), so the rates are never narrower.  Wider rates
+        cost corridor width, never exactness, since the certificate
+        decides; infinite ones seed nothing until a batch teaches finite
+        rates again."""
         sc = np.asarray(scores, dtype=np.float64)
         ln = np.maximum(lengths_np.astype(np.float64), 1.0)
         ok = sc < INF
+        rates = sc / ln
+        if deferred is not None:
+            ok[deferred] = True
+            rates[deferred] = np.inf
         if ok.any():
-            rates = np.sort(sc[ok] / ln[ok])
+            rates = np.sort(rates[ok])
             q90 = rates[int(0.9 * (rates.size - 1))]
             q95 = rates[int(0.95 * (rates.size - 1))]
             wide = q90 * 1.25
             self._seed_rate = (min(q95 * 1.0625, wide), wide)
 
-    def _fill_ends_free_seeded(self, qshift, lengths, lengths_np, mode):
+    def _fill_ends_free_seeded(self, qshift, lengths, lengths_np, mode,
+                               queries=None, pool=None):
         """Exact (scores, end_ranks, end_offsets) by k-mer seeded corridors,
-        or None where they do not apply (no rates learned yet, a small
-        graph, a bounded graph begin, no certifiable read, a repeat blow-up
-        of hits, corridors past the width budget, nothing resolved): the
-        caller then runs the full fill.
+        or None where they do not apply (no finite rates learned yet, a
+        small graph, a bounded graph begin, no certifiable read, a repeat
+        blow-up of hits, corridors past the width budget, nothing
+        resolved): the caller then runs the full fill.
 
         The corridors are a guess built from each read's dominant hit
         cluster.  After the corridor fill (:mod:`..ops.seed`) returns score
@@ -549,6 +633,9 @@ class BatchMapper:
         (no cluster, unverified score, failed certificate) joins the tail
         that the full fill scores.  A read's work becomes its span times
         the corridor width instead of every rank times its length.
+
+        With a :class:`TailPool` the tail's reads (of ``queries``) join
+        ``pool`` instead, and their rows come back as a fourth array.
         """
         n = self.flat.n_nodes
         if mode != "all" and n < self.SEED_MIN_NODES:
@@ -559,8 +646,8 @@ class BatchMapper:
             # banded fills already narrow the work
             return None
         rate = self._seed_rate
-        if rate is None:
-            return None  # the first batch learns the rates
+        if rate is None or not np.isfinite(rate[1]):
+            return None  # a full fill learns the rates
         e = self.costs.gap_extend
         if e <= 0:
             return None
@@ -642,6 +729,10 @@ class BatchMapper:
         if not resolved.any():
             return None
         tail = np.nonzero(~resolved)[0]
+        if pool is not None:
+            pool.reads += [queries[b] for b in tail]
+            self._learn_seed_ub(lengths_np, sc, deferred=tail)
+            return sc, er, ej, tail
         if tail.size:
             with spans.span("seed.tail", reads=int(tail.size)):
                 at = torch.as_tensor(tail, device=qshift.device)

@@ -116,10 +116,12 @@ def test_profiler_records_every_thread_and_adds_no_row():
 def test_flush_sorted_spans_in_order(monkeypatch):
     """``_flush_sorted`` on a small semi-global graph, pipelined: one
     ``lasagna.chunk`` over ``lasagna.sort``, per batch a
-    ``lasagna.prescore_wait`` and a ``lasagna.align``, then one
+    ``lasagna.prescore_wait`` and a ``lasagna.align``, the wait for the
+    pooled tail (the random read) and its ``lasagna.align_pool``, then one
     ``lasagna.emit``; the scorer thread's ``mapper.prescore`` spans take
-    the chunk as parent and the batch they score.  No profiler row bears
-    a program span's name."""
+    the chunk as parent and the batch they score, its ``seed.tail_pool``
+    the chunk and the pool's reads.  No profiler row bears a program
+    span's name."""
     monkeypatch.setenv("POASTA_SEED", "all")
     monkeypatch.setattr(mapper_mod.os, "cpu_count", lambda: 2)
     g, reads = _mapping_workload(n=300, read_len=120)
@@ -139,6 +141,7 @@ def test_flush_sorted_spans_in_order(monkeypatch):
         ("lasagna.sort", None),
         ("lasagna.prescore_wait", 0), ("lasagna.align", 0),
         ("lasagna.prescore_wait", 1), ("lasagna.align", 1),
+        ("lasagna.prescore_wait", "pool"), ("lasagna.align_pool", None),
         ("lasagna.emit", None)]
     pre = sorted((s for s in rec["spans"] if s.name == "mapper.prescore"),
                  key=lambda s: s.start_ns)
@@ -146,6 +149,18 @@ def test_flush_sorted_spans_in_order(monkeypatch):
         {"chunk": chunk.attrs["chunk"], "batch": k} for k in (0, 1)]
     assert all(s.parent == chunk.id and s.thread != chunk.thread
                for s in pre)
+    (pool,) = [s for s in rec["spans"] if s.name == "seed.tail_pool"]
+    assert pool.attrs == {"chunk": chunk.attrs["chunk"], "reads": 1}
+    assert pool.parent == chunk.id and pool.thread == pre[0].thread
+    assert pool.start_ns >= pre[-1].end_ns
+    assert kids[-2].attrs["reads"] == 1
+    assert rec["counts"]["reads.tail_pooled"] == 1
+    assert "seed.tail" not in {s.name for s in rec["spans"]}
+    # the pool's alignment has leaves under it: its idle time is explained
+    assert any(by_id[s.parent].name == "mapper.align_batch"
+               and by_id[by_id[s.parent].parent] is kids[-2]
+               for s in rec["spans"] if s.parent in by_id
+               and by_id[s.parent].parent in by_id)
     # every span lies inside its parent, and the names are the layers'
     for s in rec["spans"]:
         assert s.start_ns <= s.end_ns
@@ -156,7 +171,8 @@ def test_flush_sorted_spans_in_order(monkeypatch):
     assert {"mapper.align_batch", "mapper.pack", "seed.hits",
             "seed.clusters", "seed.fill", "seed.certify", "trace.sub_batch",
             "trace.inputs", "trace.fill", "trace.decode", "trace.replay",
-            "mapper.anchored_host"} <= names
+            "mapper.anchored_host", "seed.tail_pool", "lasagna.align_pool",
+            "ladder.full_fill"} <= names
     assert not names & {ev.name for ev in prof.events()}
 
 
@@ -214,6 +230,49 @@ def test_cell_counters_equal_the_launch_arithmetic(monkeypatch):
     assert counts["reads.seeded"] + counts["reads.seed_tail"] == 8
 
 
+def test_pooled_tail_cells_under_seed_tail_pool(monkeypatch):
+    """A pipelined chunk under the capped ladder (driven on the CPU): each
+    full fill of its seeded batches runs under one ``seed.tail_pool`` of
+    the chunk, none under ``seed.tail``; ``cells.tail_fill`` is still
+    ranks x padded length x reads of each full fill, every cap retry of
+    the pool included; ``reads.tail_pooled`` is the batches'
+    ``reads.seed_tail``."""
+    monkeypatch.setenv("POASTA_SEED", "all")
+    monkeypatch.setattr(mapper_mod.os, "cpu_count", lambda: 2)
+    monkeypatch.setattr(mapper_mod.BatchMapper, "_ef_cap_enabled",
+                        lambda self: True)
+    want = {"cells": 0, "reads": []}
+    real_full = mapper_mod.dp_fill_ends_free_with_ends
+
+    def full_fill(dg, flat, qshift, *args, **kwargs):
+        B, L = qshift.shape
+        want["cells"] += flat.n_nodes * L * B
+        want["reads"].append(B)
+        return real_full(dg, flat, qshift, *args, **kwargs)
+
+    g, reads = _mapping_workload()
+    mapper = _semi_mapper(g)
+    mapper.align_batch(reads[4:])  # learns the rates: both batches seed
+    monkeypatch.setattr(mapper_mod, "dp_fill_ends_free_with_ends", full_fill)
+    with spans.recording():
+        lasagna._flush_sorted(mapper, _chunk(reads), 4, lambda *rec: None)
+    rec = spans.drain()
+    counts = rec["counts"]
+    assert counts["cells.tail_fill"] == want["cells"] > 0
+    assert counts["reads.tail_pooled"] == counts["reads.seed_tail"] >= 1
+    by_id = {s.id: s for s in rec["spans"]}
+    (pool,) = [s for s in rec["spans"] if s.name == "seed.tail_pool"]
+    assert pool.attrs["reads"] == counts["reads.tail_pooled"]
+    fills = [s for s in rec["spans"] if s.name == "ladder.full_fill"]
+    assert len(fills) == len(want["reads"]) >= 1
+    for s in fills:
+        while s.parent is not None and s.name != "seed.tail_pool":
+            s = by_id[s.parent]
+        assert s is pool
+    assert set(want["reads"]) == {pool.attrs["reads"]}
+    assert "seed.tail" not in {s.name for s in rec["spans"]}
+
+
 def _cli_inputs(tmp_path, g, reads):
     gfa, fa = tmp_path / "graph.gfa", tmp_path / "reads.fa"
     with open(gfa, "w") as fh:
@@ -253,7 +312,7 @@ def test_lasagna_verbose_stage_line(tmp_path, monkeypatch, capsys):
         r"[\d.]+s, emit [\d.]+s, seeding host [\d.]+s, trace host [\d.]+s; "
         r"device fills: (\d+), cells: (\d+), tiers: (\d+); device traced "
         r"(\d+), host backtraced (\d+); seeded 0, tail 0, certificate "
-        r"failed 0\)", line)
+        r"failed 0, pooled 0\)", line)
     assert m, line
     fills, cells, tiers, traced, host = map(int, m.groups())
     assert tiers == loud["tiers"] and fills >= loud["fills"]
