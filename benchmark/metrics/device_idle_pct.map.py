@@ -1,12 +1,14 @@
-"""100 less the union of the profiler's device intervals over the traced
-window, % (chip_profile.py's arithmetic, ``yardstick.busy_union``)."""
+"""100 less the mean over the cards the run used of each card's busy
+share of the traced window, %: a card's busy time the union of its
+profiler device intervals (chip_profile.py's arithmetic,
+``yardstick.mean_busy``)."""
 
-from benchmark.yardstick import busy_union
+from benchmark.yardstick import mean_busy
 
 
 def read(run):
-    if run.trace_window is None or not run.device:
+    if run.trace_window is None or not run.device_by_card or not run.cards:
         return None
     lo, hi = run.trace_window
-    busy = busy_union([(s, e) for _, s, e in run.device])
-    return 100.0 * (1.0 - busy / (hi - lo))
+    mean = mean_busy(run.device_by_card, run.cards, run.trace_window)
+    return 100.0 * (1.0 - mean / (hi - lo))

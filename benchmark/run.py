@@ -9,11 +9,11 @@ and ``poasta_tpu_torch``.  The run makes its graph and reads from
 one entry of the port, ``benchmark/adapters/``), warms it up,
 then calls it in a closed loop until ``--seconds`` have passed and the
 call in flight has returned: that is the window.  Set-up is process start
-to the window's first call.  After the window the peak device memory is
-read, the program's state freed, and its outputs compared with the plain
-reference (``benchmark/reference/``).  With ``--trace 1`` the harness's
-spans and ``torch.profiler`` record the window, and the line carries the
-cell's per-layer metrics instead of its end-to-end ones.
+to the window's first call.  After the window each card's peak device
+memory is read, the program's state freed, and its outputs compared with
+the plain reference (``benchmark/reference/``).  With ``--trace 1`` the
+harness's spans and ``torch.profiler`` record the window, and the line
+carries the cell's per-layer metrics instead of its end-to-end ones.
 
 The last line of standard output is one JSON object (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
@@ -21,7 +21,10 @@ The last line of standard output is one JSON object (``correct``,
 the last lines of standard error repeat the checks.  No card, fewer cards
 than the cell asks for, or ``jax``, ``jaxlib``, ``flax`` or ``poasta_tpu``
 among the loaded modules after the window: an error on standard error, no
-result, a non-zero exit.
+result, a non-zero exit; so does a run that used fewer cards than its cell
+asks for, or cards of two kinds.  A card counts as used where the run
+allocated device memory on it, and in a traced run also ran device work
+in the window.
 """
 
 import time
@@ -41,7 +44,7 @@ from .graphgen import build_graph  # noqa: E402
 from .readgen import make_batches  # noqa: E402
 from .registry import Registry  # noqa: E402
 from .tracing import DeviceTrace, Spans  # noqa: E402
-from .yardstick import busy_union, idle_gaps  # noqa: E402
+from .yardstick import busy_per_card, idle_gaps, mean_busy  # noqa: E402
 
 # top-level module names that may not be loaded when the window closes:
 # the JAX package and JAX itself (compared by whole top-level name, since
@@ -55,7 +58,8 @@ class Context:
     """A run's inputs, as an adapter and a check see them."""
 
     seed: int
-    device: str
+    device: str  # the current card: where a one-card adapter works
+    devices: list  # the cell's cards, cuda:0 .. cuda:<chips-1> (CPU: cpu)
     cell: dict
     config: dict
     mix: dict
@@ -77,8 +81,9 @@ class Context:
 @dataclass
 class RunRecord:
     """What a metric's reader reads: the window's calls (host start, end,
-    reads completed), the adapter's counters, the spans, and with
-    ``--trace 1`` the device trace."""
+    reads completed), the adapter's counters, the spans, the cards the run
+    used (``cards``, indices), and with ``--trace 1`` the device trace:
+    each card's rows (``device_by_card``), and all of them as ``device``."""
 
     ctx: Context
     setup_s: float
@@ -86,9 +91,22 @@ class RunRecord:
     window_s: float
     counters: dict
     spans: dict
-    device: list = field(default_factory=list)
+    device_by_card: dict = field(default_factory=dict)
+    cards: list = field(default_factory=list)
     host_spans: list = field(default_factory=list)
     trace_window: tuple = None
+
+    def add_trace(self, traced) -> None:
+        """Take :meth:`tracing.DeviceTrace.read`'s result, each card's
+        rows in their order."""
+        rows, self.host_spans, self.trace_window = traced
+        for n, s, e, card in rows:
+            self.device_by_card.setdefault(card, []).append((n, s, e))
+
+    @property
+    def device(self) -> list:
+        """Every card's device rows (name, start, end), card by card."""
+        return [row for rows in self.device_by_card.values() for row in rows]
 
     @property
     def reads(self) -> int:
@@ -109,25 +127,62 @@ def _pin_caches(root: str) -> None:
         os.environ[var] = os.path.join(base, sub)
 
 
+def _peaks() -> list:
+    """Each visible card's peak of allocated device memory, bytes.  Reads
+    the caching allocator's counts: no CUDA context is made on a card the
+    run never touched."""
+    import torch
+
+    return [torch.cuda.max_memory_allocated(i)
+            for i in range(torch.cuda.device_count())]
+
+
 def _sync(device: str) -> None:
+    """Wait for every visible card the run has put work on (a card with
+    no allocation holds no work, and synchronising it would make a
+    context there)."""
     if device.startswith("cuda"):
         import torch
 
-        torch.cuda.synchronize()
+        for i, peak in enumerate(_peaks()):
+            if peak > 0:
+                torch.cuda.synchronize(i)
 
 
-def _breakdown(device, host_spans, window):
-    """The device operations that took most time, and the idle time of the
-    window by the harness spans open at each gap's midpoint."""
+def _cards(on_card: bool, traced_by_card):
+    """(each visible card's peak bytes, the cards the run used, their
+    kind).  Used: memory allocated there, and with a trace, device rows in
+    the window.  Raises where the used cards differ in kind."""
+    if not on_card:
+        return [0], [0], "cpu"
+    import torch
+
+    peaks = _peaks()
+    used = [i for i, peak in enumerate(peaks) if peak > 0
+            and (traced_by_card is None or traced_by_card.get(i))]
+    kinds = sorted({torch.cuda.get_device_name(i) for i in used})
+    if len(kinds) > 1:
+        raise RuntimeError(f"the cards the run used differ in kind: "
+                           f"{', '.join(kinds)}")
+    return peaks, used, kinds[0] if kinds else "none"
+
+
+def _breakdown(run):
+    """The device operations that took most time (every card's), and the
+    idle time of the window summed over the cards the run used, by the
+    harness spans open at each gap's midpoint."""
     per_op = {}
-    for name, s, e in device:
+    for name, s, e in run.device:
         per_op[name] = per_op.get(name, 0.0) + (e - s)
     idle = {}
-    for a, b in idle_gaps([(s, e) for _, s, e in device], *window):
-        mid = (a + b) / 2
-        label = "+".join(sorted({n for n, s, e in host_spans
-                                 if s <= mid <= e})) or "outside any span"
-        idle[label] = idle.get(label, 0.0) + (b - a)
+    for card in run.cards:
+        rows = run.device_by_card.get(card, [])
+        for a, b in idle_gaps([(s, e) for _, s, e in rows],
+                              *run.trace_window):
+            mid = (a + b) / 2
+            label = "+".join(sorted({n for n, s, e in run.host_spans
+                                     if s <= mid <= e})) or "outside any span"
+            idle[label] = idle.get(label, 0.0) + (b - a)
 
     def top(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])
@@ -140,6 +195,7 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
     """One run of cell ``name``: (the result line as a dict, the checks as
     [(name, value, limit)])."""
     t_start = T_START if t_start is None else t_start
+    on_card = device.startswith("cuda")
     cell = reg.cell(name)
     config, mix = reg.config(cell["config"]), reg.mix(cell["traffic"])
     gfa, haps, backbone = build_graph(config["graph"], seed)
@@ -149,9 +205,12 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
         with open(gfa_path, "w") as fh:
             fh.write(gfa)
         spans = Spans(trace)
-        ctx = Context(seed=seed, device=device, cell=cell, config=config,
-                      mix=mix, tmpdir=tmp, gfa_text=gfa, gfa_path=gfa_path,
-                      batches=batches, warm=warm, spans=spans)
+        devices = ([f"cuda:{i}" for i in range(cell["chips"])] if on_card
+                   else [device] * cell["chips"])
+        ctx = Context(seed=seed, device=device, devices=devices, cell=cell,
+                      config=config, mix=mix, tmpdir=tmp, gfa_text=gfa,
+                      gfa_path=gfa_path, batches=batches, warm=warm,
+                      spans=spans)
         caller = reg.adapter(cell["adapter"]).start(ctx)
         caller.warm_up()
         _sync(device)
@@ -173,31 +232,28 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
         print(f"window: {len(calls)} calls in {window_s:.3f} s, a call "
               f"{walls[0]:.3f} / {walls[len(walls) // 2]:.3f} / "
               f"{walls[-1]:.3f} s (least / median / most)", file=sys.stderr)
+        run = RunRecord(ctx=ctx, setup_s=setup_s, calls=calls,
+                        window_s=window_s, counters={}, spans={})
         traced = dtrace.read()
-        on_card = device.startswith("cuda")
-        if on_card:
-            import torch
-
-            peak = torch.cuda.max_memory_allocated()
-            kind = torch.cuda.get_device_name(0)
-        else:
-            peak, kind = 0, "cpu"
-        counters = caller.counters()
+        if traced is not None:
+            run.add_trace(traced)
+        peaks, run.cards, kind = _cards(
+            on_card, None if traced is None else run.device_by_card)
+        run.counters = caller.counters()
         outputs = caller.outputs()
         caller.close()
         del caller
         gc.collect()
         if on_card:
+            import torch
+
+            # the caching allocator releases the cache of every card
             torch.cuda.empty_cache()
         t_check = time.perf_counter()
         checks = reg.check(outputs["kind"]).check(outputs, ctx)
         print(f"reference check: {time.perf_counter() - t_check:.1f} s",
               file=sys.stderr)
-        run = RunRecord(ctx=ctx, setup_s=setup_s, calls=calls,
-                        window_s=window_s, counters=counters,
-                        spans=dict(spans.durations))
-        if traced is not None:
-            run.device, run.host_spans, run.trace_window = traced
+        run.spans = dict(spans.durations)
         metrics = {}
         for m in reg.metrics(name, trace):
             value = reg.metric(m["name"]).read(run)
@@ -205,16 +261,19 @@ def run_cell(reg: Registry, name: str, seed: int, seconds: float,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     missing = sum(v for k, v, _ in checks if k.endswith("_missing"))
     dev = {"platform": "gpu" if on_card else "cpu", "kind": kind,
-           "count": 1, "memory_peak_bytes": int(peak)}
+           "count": len(run.cards), "memory_peak_bytes": int(max(peaks)),
+           "memory_peak_bytes_per_card": [int(p) for p in peaks]}
     line = {"correct": all(v <= lim for _, v, lim in checks),
             "attempted": run.reads, "failed": int(missing),
             "metrics": metrics, "device": dev}
     if traced is not None:
         lo, hi = run.trace_window
-        dev["busy_s"] = busy_union([(s, e) for _, s, e in run.device])
+        busy = busy_per_card(run.device_by_card, run.trace_window)
+        dev["busy_s"] = mean_busy(run.device_by_card, run.cards,
+                                  run.trace_window)
+        dev["busy_s_per_card"] = [busy.get(i, 0.0) for i in range(len(peaks))]
         dev["window_s"] = hi - lo
-        line["breakdown"] = _breakdown(run.device, run.host_spans,
-                                       run.trace_window)
+        line["breakdown"] = _breakdown(run)
     line["checks"] = {k: {"value": v, "limit": lim} for k, v, lim in checks}
     return line, checks
 
@@ -238,6 +297,11 @@ def main(argv=None) -> int:
     _pin_caches(reg.root)
     line, checks = run_cell(reg, args.workload, args.seed, args.seconds,
                             bool(args.trace))
+    used = line["device"]["count"]
+    if used < chips:
+        print(f"error: cell {args.workload} needs {chips} card(s); the run "
+              f"used {used}", file=sys.stderr)
+        return 4
     banned = loaded_banned()
     if banned:
         print(f"error: loaded after the window: {', '.join(banned)}",

@@ -1,13 +1,16 @@
 """CPU tests of the benchmark at tiny sizes: the generators, the reference
 against hand-worked cases and the port, the metric arithmetic, the
-registry, the import rule, the control and the check's faults."""
+registry, the import rule, the cards a run reports (over fake cards), the
+control and the check's faults; and card tests, marked ``cuda``."""
 
 import ast
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,7 +26,13 @@ from benchmark.reference.dp import best_scores  # noqa: E402
 from benchmark.reference.gfa import parse_gfa  # noqa: E402
 from benchmark.registry import Registry  # noqa: E402
 from benchmark.tracing import Spans  # noqa: E402
-from benchmark.yardstick import busy_union, idle_gaps, percentile  # noqa: E402
+from benchmark.yardstick import (  # noqa: E402
+    busy_per_card,
+    busy_union,
+    idle_gaps,
+    mean_busy,
+    percentile,
+)
 
 COSTS = {"mismatch": 4, "gap_open": 6, "gap_extend": 2}
 SEED = 2**31 + 12345
@@ -227,12 +236,45 @@ def test_metric_arithmetic(tiny):
     assert busy_union([(0, 2), (1, 3), (5, 6), (5.5, 5.7)]) == 4
     assert idle_gaps([(1, 2), (1.5, 3), (5, 6)], 0, 7) == [
         (0, 1), (3, 5), (6, 7)]
-    run.device = [("void banded_reg_kernel<false, 0, false, 4>", 0.0, 0.5),
-                  ("trace_fill_kernel", 0.5, 1.0)]
+    run.device_by_card = {0: [
+        ("void banded_reg_kernel<false, 0, false, 4>", 0.0, 0.5),
+        ("trace_fill_kernel", 0.5, 1.0)]}
+    run.cards = [0]
     run.trace_window = (0.0, 2.0)
     assert tiny.metric("device_idle_pct.map").read(run) == 50.0
     assert tiny.metric("trace_kernels_ms_per_read").read(run) == \
         pytest.approx(0.5e3 / 40)
+
+
+def test_busy_and_idle_per_card(tiny):
+    """Four cards, the fourth idle through the window: a quarter of the
+    cards' time is idle.  On one card the per-card arithmetic is the union
+    of every row."""
+    window = (0.0, 4.0)
+    rows = {0: [("a", 0.0, 4.0)],
+            1: [("a", 0.0, 2.5), ("b", 2.0, 4.0)],
+            2: [("a", -1.0, 5.0)]}
+    assert busy_per_card(rows, window) == {0: 4.0, 1: 4.0, 2: 4.0}
+    run = bench_run.RunRecord(
+        ctx=None, setup_s=0.0, calls=[(0.0, 4.0, 1)], window_s=4.0,
+        counters={}, spans={}, device_by_card=rows, cards=[0, 1, 2, 3],
+        trace_window=window)
+    assert run.device == [r for c in rows for r in rows[c]]
+    assert mean_busy(rows, [0, 1, 2, 3], window) == 3.0
+    for name in ("device_idle_pct.map", "device_idle_pct.score"):
+        assert tiny.metric(name).read(run) == 25.0
+    assert bench_run._breakdown(run)["idle_gaps"] == [
+        ["outside any span", 4.0]]
+    one = [("a", 0.5, 1.0), ("b", 0.75, 1.5), ("c", 3.0, 3.5)]
+    union = busy_union([(s, e) for _, s, e in one])
+    assert busy_per_card({0: one}, window) == {0: union}
+    run = bench_run.RunRecord(
+        ctx=None, setup_s=0.0, calls=[(0.0, 4.0, 1)], window_s=4.0,
+        counters={}, spans={}, device_by_card={0: one}, cards=[0],
+        trace_window=window)
+    assert mean_busy({0: one}, [0], window) == union
+    for name in ("device_idle_pct.map", "device_idle_pct.score"):
+        assert tiny.metric(name).read(run) == 100.0 * (1.0 - union / 4.0)
 
 
 def test_spans_wrap_only_when_traced():
@@ -324,6 +366,89 @@ def test_cli_refuses_without_a_card(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
+# -- the cards a run used, over fake cards -----------------------------------
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+class FakeCards:
+    """``torch.cuda``'s card functions over ``n`` visible cards of one
+    kind; a card's peak is what an adapter allocated there, and each
+    synchronised card is noted."""
+
+    def __init__(self, monkeypatch, n):
+        import torch
+
+        self.peaks, self.synced = [0] * n, []
+        for name, fn in (("is_available", lambda: True),
+                         ("device_count", lambda: n),
+                         ("max_memory_allocated", lambda i: self.peaks[i]),
+                         ("get_device_name", lambda i: H100),
+                         ("synchronize", self.synced.append)):
+            monkeypatch.setattr(torch.cuda, name, fn)
+
+    def adapter(self, touch):
+        """An adapter that allocates (card + 1) MiB on each of the first
+        ``touch`` cards the run gives it, and answers nothing."""
+        def start(ctx):
+            for dev in ctx.devices[:touch]:
+                i = int(dev.split(":")[1])
+                self.peaks[i] = (i + 1) << 20
+            return SimpleNamespace(warm_up=lambda: None, step=lambda: 1,
+                                   counters=dict, close=lambda: None,
+                                   outputs=lambda: {"kind": "none"})
+        return SimpleNamespace(start=start)
+
+
+@pytest.mark.parametrize("chips,touch", [(1, 1), (4, 4), (4, 1)])
+def test_cards_a_run_used(tiny, monkeypatch, capsys, chips, touch):
+    """Four cards visible: a cell reports the cards its run allocated on
+    and the fullest one's peak, waits only on those, and a run that used
+    fewer cards than its cell asks for fails with no result."""
+    cards = FakeCards(monkeypatch, 4)
+    name = f"gene5k.cards{chips}"
+    tiny.spec["workloads"].append({"name": name, "config": "gene5k",
+                                   "traffic": "score_uniform",
+                                   "chips": chips, "why": "a test"})
+    with open(os.path.join(tiny.bench, "workloads", f"{name}.json"),
+              "w") as fh:
+        json.dump({"adapter": "fake"}, fh)
+    monkeypatch.setattr(tiny, "adapter", lambda _: cards.adapter(touch))
+    monkeypatch.setattr(tiny, "check", lambda _: SimpleNamespace(
+        check=lambda outputs, ctx: [("answers_missing", 0, 0)]))
+    monkeypatch.setattr(bench_run, "Registry", lambda: tiny)
+    # the ban has its own test; this process may hold JAX from another file
+    monkeypatch.setattr(bench_run, "loaded_banned", list)
+    # main() pins the build caches in the environment: restore it after
+    for var in ("TORCH_EXTENSIONS_DIR", "TRITON_CACHE_DIR", "CUDA_CACHE_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    rc = bench_run.main(["--workload", name, "--seed", str(SEED),
+                         "--seconds", "0.05"])
+    out, err = capsys.readouterr()
+    assert set(cards.synced) == set(range(touch))
+    if touch < chips:
+        assert rc != 0 and out == ""
+        assert (f"error: cell {name} needs {chips} card(s); the run used "
+                f"{touch}") in err
+        return
+    assert rc == 0
+    dev = json.loads(out.splitlines()[-1])["device"]
+    assert dev["platform"] == "gpu" and dev["kind"] == H100
+    assert dev["count"] == touch
+    assert dev["memory_peak_bytes"] == touch << 20
+    assert dev["memory_peak_bytes_per_card"] == cards.peaks
+
+
+def test_traced_card_without_rows_is_not_used(monkeypatch):
+    """In a traced run a card with memory but no device row in the window
+    does not count as used."""
+    cards = FakeCards(monkeypatch, 4)
+    cards.peaks[:] = [1, 2, 3, 4]
+    rows = {0: [("k", 0.0, 1.0)], 1: [("k", 0.0, 1.0)], 3: []}
+    assert bench_run._cards(True, rows) == ([1, 2, 3, 4], [0, 1], H100)
+    assert bench_run._cards(True, None) == ([1, 2, 3, 4], [0, 1, 2, 3], H100)
+
+
 # -- whole runs on the CPU, the control and the faults ----------------------
 
 
@@ -333,11 +458,10 @@ def test_cli_refuses_without_a_card(monkeypatch, capsys):
 def test_cells_run_and_are_correct(tiny, cell, trace):
     line = run_tiny(tiny, cell, trace)
     assert line["correct"] and line["failed"] == 0, line["checks"]
-    want = {m["name"] for m in tiny.metrics(cell, trace)}
+    # no device on the CPU: the device-trace readers find nothing
+    want = {m["name"] for m in tiny.metrics(cell, trace)
+            if m["source"] != "device_trace"}
     if trace:
-        # no device on the CPU: the device-trace readers find nothing
-        want -= {"fill_roofline_pct", "trace_kernels_ms_per_read",
-                 "device_idle_pct.map", "device_idle_pct.score"}
         assert "breakdown" in line
     assert set(line["metrics"]) == want
     assert list(line)[-1] == "checks"
@@ -428,3 +552,151 @@ def test_cells_on_the_card(tiny, card, cell):
                                  t_start=time.perf_counter())
     assert line["correct"], line["checks"]
     assert line["device"]["busy_s"] > 0
+
+
+MESH_ADAPTER = '''"""score_batch under a mesh of the cell's first ``dp``
+cards."""
+
+import numpy as np
+
+from benchmark.adapters import port as port_mod
+
+
+def start(ctx):
+    return Caller(ctx)
+
+
+class Caller:
+    def __init__(self, ctx):
+        from poasta_tpu_torch.utils.mesh import make_mesh
+
+        port = port_mod.names()
+        graph, _ = port.load_graph_from_gfa(ctx.gfa_path)
+        c, dp = ctx.config["costs"], ctx.cell["dp"]
+        self.mapper = port.BatchMapper(
+            graph, port.GapAffine(c["mismatch"], c["gap_extend"],
+                                  c["gap_open"]),
+            mesh=make_mesh(devices=ctx.devices[:dp], dp=dp),
+            aln_type=port.span_of(ctx.config["span"]))
+        self.batches, self.calls = ctx.batches, []
+
+    def warm_up(self):
+        for batch in self.batches:
+            self.mapper.score_batch(batch)
+
+    def step(self):
+        k = len(self.calls) % len(self.batches)
+        self.calls.append((k, np.asarray(
+            self.mapper.score_batch(self.batches[k]))))
+        return len(self.batches[k])
+
+    def counters(self):
+        return {"calls": len(self.calls)}
+
+    def outputs(self):
+        return {"kind": "scores", "calls": self.calls}
+
+    def close(self):
+        self.mapper = None
+'''
+
+# after the run: which cards hold a CUDA context, and each card's cache
+AFTER_MAIN = """import json, sys, torch
+from benchmark import run
+rc = run.main(sys.argv[1:])
+n = torch.cuda.device_count()
+print("contexts", json.dumps([torch._C._cuda_hasPrimaryContext(i)
+                              for i in range(n)]), file=sys.stderr)
+print("reserved", json.dumps([torch.cuda.memory_reserved(i)
+                              for i in range(n)]), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _run_in_process_of_its_own(root, cell, trace):
+    """(exit code, the result line or None, what AFTER_MAIN printed) of
+    one run of ``cell`` from ``root``, as the benchmark's command runs."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, REPO])}
+    res = subprocess.run(
+        [sys.executable, "-c", AFTER_MAIN, "--workload", cell, "--seed",
+         str(SEED), "--seconds", "2", "--trace", str(trace)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    after = {row.split(" ", 1)[0]: json.loads(row.split(" ", 1)[1])
+             for row in res.stderr.splitlines()
+             if row.startswith(("contexts ", "reserved "))}
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else None
+    window = [row for row in res.stderr.splitlines()
+              if row.startswith("window: ")]
+    print(cell, "trace", trace, "rc", res.returncode, json.dumps(after),
+          json.dumps(line and {k: line[k] for k in ("metrics", "device")}),
+          *window)
+    return res.returncode, line, after, res.stderr
+
+
+@pytest.mark.cuda
+def test_cells_on_four_cards(tiny, card):
+    """On a host of four cards: a one-card cell uses card 0 and makes no
+    context on the others; a four-card cell under dp=4 reports four cards,
+    each with its peak, its idle share the mean of the cards'; the same
+    cell under dp=1 fails with no result."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four CUDA cards; torch sees "
+                    f"{torch.cuda.device_count()}")
+    root, bench = tiny.root, tiny.bench
+    spec = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    gene = json.load(open(os.path.join(REPO, "benchmark", "configs",
+                                       "gene5k.json")))
+    spec["configs"].append({"name": "gene5k_mesh", "source": "a test",
+                            "file": "benchmark/configs/gene5k_mesh.json",
+                            "reduced": [], "why": "a test"})
+    cell = "gene5k_mesh.score_dp4"
+    spec["workloads"].append({"name": cell, "config": "gene5k_mesh",
+                              "traffic": "score_mesh", "chips": 4,
+                              "why": "a test"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if m["name"] in ("reads_per_s.score", "device_idle_pct.score"):
+            m["workloads"].append(cell)
+    files = {"BENCHMARK.json": spec,
+             "benchmark/configs/gene5k_mesh.json": gene,
+             "benchmark/mixes/score_mesh.json": {
+                 "source": "haplotypes", "divergence": 0.03,
+                 "cut_to": 5000, "batch_reads": 64, "batches": 2},
+             f"benchmark/workloads/{cell}.json": {"adapter": "score_mesh",
+                                                 "dp": 4}}
+    for rel, data in files.items():
+        with open(os.path.join(root, rel), "w") as fh:
+            json.dump(data, fh)
+    with open(os.path.join(bench, "adapters", "score_mesh.py"), "w") as fh:
+        fh.write(MESH_ADAPTER)
+
+    rc, line, after, err = _run_in_process_of_its_own(root, "gene5k.score",
+                                                      0)
+    assert rc == 0 and line["correct"], err[-2000:]
+    assert line["device"]["count"] == 1
+    assert after["contexts"] == [True, False, False, False]
+
+    for trace in (0, 1):
+        rc, line, after, err = _run_in_process_of_its_own(root, cell, trace)
+        assert rc == 0 and line["correct"], err[-2000:]
+        dev = line["device"]
+        assert dev["count"] == 4 and dev["kind"] == H100
+        assert len(dev["memory_peak_bytes_per_card"]) == 4
+        assert all(p > 0 for p in dev["memory_peak_bytes_per_card"])
+        assert dev["memory_peak_bytes"] == max(
+            dev["memory_peak_bytes_per_card"])
+        if trace:
+            per_card = dev["busy_s_per_card"]
+            assert all(b > 0 for b in per_card)
+            assert dev["busy_s"] == pytest.approx(sum(per_card) / 4)
+            idle = line["metrics"]["device_idle_pct.score"]["value"]
+            assert idle == pytest.approx(
+                100 * (1 - dev["busy_s"] / dev["window_s"]))
+
+    with open(os.path.join(bench, "workloads", f"{cell}.json"), "w") as fh:
+        json.dump({"adapter": "score_mesh", "dp": 1}, fh)
+    rc, line, _, err = _run_in_process_of_its_own(root, cell, 0)
+    assert rc != 0 and line is None
+    assert f"error: cell {cell} needs 4 card(s); the run used 1" in err

@@ -58,8 +58,8 @@ def _run(trace_window=(5.0, 8.0)):
               ("void trace_fill_kernel<4>(int const*)", 6.0, 7.0)]
     return bench_run.RunRecord(
         ctx=None, setup_s=1.0, calls=[(100.0, 101.5, 10), (101.5, 103.0, 10)],
-        window_s=3.0, counters={}, spans={}, device=device,
-        trace_window=trace_window)
+        window_s=3.0, counters={}, spans={}, device_by_card={0: device},
+        cards=[0], trace_window=trace_window)
 
 
 SPANS = [
@@ -142,12 +142,10 @@ def test_clock_mapping_under_a_cpu_profiler():
                 time.sleep(0.05)
             time.sleep(0.01)
             t1 = time.perf_counter()
-    device, host, window = dt.read()
     run = bench_run.RunRecord(ctx=None, setup_s=0.0, calls=[(t0, t1, 1)],
-                              window_s=t1 - t0, counters={}, spans={},
-                              device=device, host_spans=host,
-                              trace_window=window)
-    ((_, p0, p1),) = [h for h in host if h[0] == "probe"]
+                              window_s=t1 - t0, counters={}, spans={})
+    run.add_trace(dt.read())
+    ((_, p0, p1),) = [h for h in run.host_spans if h[0] == "probe"]
     ((_, _, _, _, s0, s1),) = program_spans.recorded(run)["spans"]
     assert abs(s0 - p0) < 1e-3 and abs(s1 - p1) < 1e-3
     assert s1 - s0 == pytest.approx(0.05, abs=0.02)

@@ -72,9 +72,10 @@ class DeviceTrace:
         return record_function(WINDOW)
 
     def read(self):
-        """(device activities [(name, start, end)] clipped to the window,
-        harness spans [(name, start, end)], (window start, window end)),
-        in seconds on the profiler's clock; None when disabled."""
+        """(device activities [(name, start, end, card)] clipped to the
+        window, harness spans [(name, start, end)], (window start, window
+        end)), in seconds on the profiler's clock, ``card`` the index of the
+        card the activity ran on; None when disabled."""
         if self._prof is None:
             return None
         from torch.autograd import DeviceType
@@ -87,7 +88,7 @@ class DeviceTrace:
                 # annotations), which are no device work
                 if "Activity Buffer" not in ev.name \
                         and not ev.name.startswith(SPAN):
-                    device.append((ev.name, start, end))
+                    device.append((ev.name, start, end, ev.device_index))
             elif ev.name == WINDOW:
                 window = (start, end)
             elif ev.name.startswith(SPAN):
@@ -95,6 +96,6 @@ class DeviceTrace:
         if window is None:
             raise RuntimeError("the profiler recorded no window span")
         lo, hi = window
-        device = [(n, max(s, lo), min(e, hi)) for n, s, e in device
-                  if e > lo and s < hi]
+        device = [(n, max(s, lo), min(e, hi), card)
+                  for n, s, e, card in device if e > lo and s < hi]
         return device, spans, window

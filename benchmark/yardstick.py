@@ -1,7 +1,7 @@
 """Frozen arithmetic of the benchmark: the card's peaks, the operations a
-fill needs per cell, percentiles, the union of busy intervals and the
-read padding rule.  Copies, so that a later change to the program cannot
-move the yardstick; each names its origin.
+fill needs per cell, percentiles, the union of busy intervals (of all rows
+and of each card's) and the read padding rule.  Copies, so that a later
+change to the program cannot move the yardstick; each names its origin.
 """
 
 from __future__ import annotations
@@ -58,6 +58,23 @@ def busy_union(spans) -> float:
             busy += end - max(start, reach)
             reach = end
     return busy
+
+
+def busy_per_card(device_by_card, window) -> dict:
+    """Each card's busy time in ``window`` (lo, hi): the union of that
+    card's (name, start, end) rows, each clipped to the window."""
+    lo, hi = window
+    return {card: busy_union([(max(s, lo), min(e, hi)) for _, s, e in rows
+                              if e > lo and s < hi])
+            for card, rows in device_by_card.items()}
+
+
+def mean_busy(device_by_card, cards, window) -> float:
+    """The mean over ``cards`` of each card's busy time in ``window``
+    (:func:`busy_per_card`; a card without rows is idle throughout): the
+    harness's ``busy_s`` and the ``device_idle_pct`` readers' rule."""
+    busy = busy_per_card(device_by_card, window)
+    return sum(busy.get(c, 0.0) for c in cards) / max(len(cards), 1)
 
 
 def idle_gaps(spans, lo: float, hi: float):
