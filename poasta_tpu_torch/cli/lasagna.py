@@ -16,7 +16,14 @@ heuristic is not admissible when ends are free.
 ``--mesh`` shards each batch over a device mesh (``parse_mesh_spec``):
 ``auto`` is dp over every visible card, ``off`` one device, ``DP[,SP]``
 explicit axis sizes; under ``--device cpu`` a ``DP[,SP]`` spec builds
-DP*SP CPU entries.  A mesh rounds the batch size up to 64 * dp.
+DP*SP CPU entries.  A mesh rounds the batch size up to 64 * dp.  Under
+``-m semi-global`` or ``ends-free`` a dp-only mesh (``auto``'s, and each
+host's under ``--distributed``) keeps one replica of the one-card path a
+card: each batch's scoring, its seeding tail pool and its alignment split
+into a block a card, each run on its own card (seeded corridors, the
+capped tail, the anchored trace and decode), and the records come back in
+input order, byte-equal to ``--mesh off``'s.  ``-v`` then adds a line a
+card: the reads it aligned and its time in each stage.
 
 ``--distributed`` joins a ``torch.distributed`` process group (gloo: no
 collective runs inside a fill) at ``tcp://--coordinator-address`` with
@@ -277,7 +284,10 @@ def _flush_sorted(mapper, chunk, batch_size, emit_record, verbose=0):
                 for (name, seq), (score, alignment) in zip(chunk, results):
                     emit_record(name, seq, score, alignment)
     if verbose:
-        print(stage_line(len(chunk), spans.drain()), file=sys.stderr)
+        recorded = spans.drain()
+        print(stage_line(len(chunk), recorded), file=sys.stderr)
+        for line in card_lines(recorded):
+            print(line, file=sys.stderr)
 
 
 # the spans of a fill, each one launch (or one launch a shard) and its
@@ -312,6 +322,23 @@ def stage_line(n_reads: int, recorded: dict) -> str:
         f"{c.get('reads.seeded', 0)}, tail {c.get('reads.seed_tail', 0)}, "
         f"certificate failed {c.get('reads.cert_failed', 0)}, pooled "
         f"{c.get('reads.tail_pooled', 0)})")
+
+
+def card_lines(recorded: dict) -> list:
+    """``lasagna -v``'s line for each card of a mesh's replicas, from the
+    chunk's ``mesh.shard`` spans: the reads it aligned and its time in
+    each stage (none without replicas)."""
+    cards = {}
+    for s in recorded["spans"]:
+        if s.name == "mesh.shard":
+            c = cards.setdefault(s.attrs["card"], {
+                "reads": 0, "prescore": 0.0, "pool": 0.0, "align": 0.0})
+            c[s.attrs["stage"]] += (s.end_ns - s.start_ns) / 1e9
+            if s.attrs["stage"] == "align":
+                c["reads"] += s.attrs["reads"]
+    return [f"INFO: card {card}: aligned {c['reads']} reads (mesh.shard "
+            f"prescore {c['prescore']:.2f}s, pool {c['pool']:.2f}s, align "
+            f"{c['align']:.2f}s)" for card, c in sorted(cards.items())]
 
 
 def build_parser():

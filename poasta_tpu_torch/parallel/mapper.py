@@ -20,7 +20,9 @@ this one process, as one controller drives the reference's ``shard_map``:
 
 from __future__ import annotations
 
+import copy
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -50,6 +52,7 @@ from ..ops.trace import trace_align, trace_enabled
 from ..utils import spans
 from ..utils.mesh import (
     Mesh,
+    bound_to,
     check_mesh,
     dp_shards,
     gather,
@@ -69,18 +72,52 @@ class TailPool:
     pool=pool)`` appends each batch's unresolved reads in row order instead
     of filling them, and :meth:`BatchMapper.fill_tail_pool` fills them all
     in one launch (one thread block a read, so one read alone leaves all
-    but one SM idle).  Only the thread that scores writes it."""
+    but one SM idle).  Only the thread that scores writes it.
+
+    Under a mapper's replicas (:meth:`BatchMapper._on_cards`) each card
+    keeps a pool of its own, ``parts[card]``, and fills it on that card;
+    ``cards`` names the card of each read of ``reads``."""
 
     def __init__(self):
         self.reads: list = []
+        self.parts: list = []
+        self.cards: list = []
 
     @staticmethod
     def deferred(token) -> np.ndarray:
         """The rows of a :meth:`BatchMapper.prescore` token whose reads
         joined a pool (none for a token made without one)."""
+        if isinstance(token, _Dealt):
+            return token.deferred
         if token is None or len(token) < 5:
             return np.zeros(0, dtype=np.int64)
         return token[4]
+
+
+class _Dealt:
+    """A token of a mapper with replicas: ``parts`` holds (card, the rows
+    of ``queries`` the card holds, the card's own token or None), and
+    ``deferred`` the rows that joined a :class:`TailPool`."""
+
+    __slots__ = ("queries", "parts", "deferred")
+
+    def __init__(self, queries, parts, deferred):
+        self.queries, self.parts, self.deferred = queries, parts, deferred
+
+
+# the counts of ``last_seed_stats`` that a mapper with replicas sums over
+# its cards
+SEED_COUNTS = ("seeded", "seed_tail", "seed_attempts", "cert_failed",
+               "unverified", "no_cluster")
+
+
+def _summed(stats, keys=None):
+    """Per-card counter dicts summed key by key (``keys``: those keys
+    alone); None where no card set one."""
+    got = [s for s in stats if s]
+    if not got:
+        return None
+    return {k: sum(s[k] for s in got) for k in keys or got[0]}
 
 
 def _sp_scan_rows(dg: DeviceGraph, qshift: torch.Tensor,
@@ -235,13 +272,23 @@ class BatchMapper:
     as in ``poasta_tpu``, so every read takes the anchored corridor.
 
     ``mesh``: None, or a port mesh (:mod:`..utils.mesh`) over which the
-    fills split the batch, as the reference's mesh branches do:
-    ``score_batch`` takes the sharded full fill under a global span
-    (:func:`make_sharded_score_fn`), the sharded banded scorer under
-    two-piece costs, and the sharded bounded fill under an ends-free span;
-    ``align_batch`` takes the banded route at every size, with no capped
-    ladder and no seeding; the trace and the decode run on the mesh's
-    first device.
+    batch splits.  A one-piece ends-free span over a dp-only mesh (sp = 1;
+    ``lasagna --mesh auto``'s) keeps ``replicas``: one single-card mapper
+    a mesh row, on that row's device, each with its own graph copy,
+    scorer, ub hints, seed rates and tail pool, sharing the host k-mer
+    index and native engine.  :meth:`prescore`, :meth:`fill_tail_pool`
+    and :meth:`align_batch` deal a batch to them in contiguous blocks
+    (:func:`..utils.mesh.dp_shards`), each block on a thread bound to its
+    card through the whole one-card path (seeded corridors, certificate,
+    capped tail, anchored trace and decode), and gather the results on the
+    host in input order; ``last_seed_stats`` sums the cards' counts
+    (``"cards"``: each card's own).  Every other mesh follows the
+    reference's branches: ``score_batch`` takes the sharded full fill
+    under a global span (:func:`make_sharded_score_fn`), the sharded
+    banded scorer under two-piece costs, and the sharded bounded fill
+    under an ends-free span; ``align_batch`` takes the banded route at
+    every size, with no capped ladder and no seeding, and the trace and
+    the decode run on the mesh's first device.
     """
 
     # dense tables cost Np*B*L*12 bytes; past this budget align_batch takes
@@ -263,28 +310,60 @@ class BatchMapper:
         self.mesh = mesh
         if device is None and mesh is not None:
             device = mesh.first
-        self.dg = DeviceGraph.build(self.flat, device=device)
         self.costs = costs
         self.batch_size = batch_size
         self.aln_type = aln_type
         self.ends_free = isinstance(aln_type, EndsFree)
+        self._native = None
+        # the host k-mer index, built at the first eligible batch by the
+        # mapper whose replicas share it (``_home``), under its lock; the
+        # share of the host's cores this mapper's native pools take
+        self._home = self
+        self._index_lock = threading.Lock()
+        self._seed_index = None
+        self._host_share = 1
+        self._place(DeviceGraph.build(self.flat, device=device))
+        self.replicas = None
+        if mesh is not None and self.ends_free \
+                and not costs.is_two_piece and mesh.shape["sp"] == 1:
+            self._init_banded()
+            self.replicas = [self._replica(dev)
+                             for dev in mesh.devices[:, 0]]
+
+    def _place(self, dg) -> None:
+        """The mapper's state on ``dg``'s device: the graph, the scorer,
+        and what its batches teach it."""
+        self.dg = dg
         # an ends-free span scores over the mesh through the bounded fill
         # (score_batch); its scorer keeps the span's tables and counters
-        self.scorer = BandedScorer(self.flat, costs,
-                                   mesh=None if self.ends_free else mesh,
-                                   dg=self.dg, aln_type=aln_type)
+        self.scorer = BandedScorer(self.flat, self.costs,
+                                   mesh=None if self.ends_free else self.mesh,
+                                   dg=dg, aln_type=self.aln_type)
         self._score_fn = None
-        self._native = None
         self.last_banded_stats = {"device_traced": 0, "host_backtraced": 0}
         # ends-free alignment: ub hints of the capped full fill per
-        # (n_min, n_max); the k-mer index (built at the first eligible
-        # batch) and the (tight, wide) per-character score rates that size
-        # the seeded corridors; the last batch's counters
+        # (n_min, n_max); the (tight, wide) per-character score rates that
+        # size the seeded corridors; the last batch's counters
         self._ef_ub_hint: dict = {}
-        self._seed_index = None
         self._seed_rate = None
         self.last_seed_stats = None
         self.last_ends_free_stats = None
+
+    def _replica(self, device) -> "BatchMapper":
+        """A single-card mapper on ``device`` that shares this mapper's
+        graph, flattening, native engine and k-mer index, and takes a
+        mesh row's share of the host's cores for its native pools."""
+        rep = copy.copy(self)
+        rep.mesh = None
+        rep._home = self
+        rep._host_share = self.mesh.shape["dp"]
+        rep._place(self.dg.on(device))
+        return rep
+
+    def _host_workers(self, n: int) -> int:
+        """Threads of a native host pool for ``n`` reads: this mapper's
+        share of the host's cores."""
+        return max(1, min(n, (os.cpu_count() or 4) // self._host_share))
 
     def score_batch(self, queries) -> np.ndarray:
         """(B,) exact alignment scores of byte-string reads under the
@@ -325,6 +404,8 @@ class BatchMapper:
         """
         if not queries:
             return []
+        if self.replicas is not None:
+            return self._align_dealt(queries, prescored)
         with spans.span("mapper.align_batch"):
             return self._align_batch(queries, prescored)
 
@@ -419,6 +500,8 @@ class BatchMapper:
                 return None
         elif not self.takes_banded_path(queries):
             return None
+        if self.replicas is not None:
+            return self._prescore_dealt(queries, pool)
         with spans.span("mapper.prescore"):
             self._init_banded()
             qshift, lengths = self._pack(queries)
@@ -439,6 +522,8 @@ class BatchMapper:
         batch padded its own).  Exact per read whichever reads share the
         fill: the cap argument of :func:`..aligner.banded.ins_run_cap` and
         the end-state tie-breaks hold read by read."""
+        if self.replicas is not None:
+            return self._fill_pool_dealt(pool)
         with spans.span("seed.tail_pool", reads=len(pool.reads)):
             spans.count("reads.tail_pooled", len(pool.reads))
             qshift, lengths = self._pack(pool.reads)
@@ -482,7 +567,7 @@ class BatchMapper:
                 return score, aln
 
             stats["host_backtraced"] = len(rest)
-            workers = max(1, min(len(rest), os.cpu_count() or 4))
+            workers = self._host_workers(len(rest))
             with spans.span("mapper.host_backtrace"), \
                     ThreadPoolExecutor(max_workers=workers) as pool:
                 for b, res in zip(rest, pool.map(one, rest)):
@@ -580,6 +665,16 @@ class BatchMapper:
                 out = (*out, np.zeros(0, dtype=np.int64))
         return out
 
+    def _kmer_index(self) -> KmerIndex:
+        """The host k-mer index over the graph, built at its first use by
+        whichever of a mesh's replicas gets there first; read-only after."""
+        home = self._home
+        with home._index_lock:
+            if home._seed_index is None:
+                with spans.span("seed.index"):
+                    home._seed_index = KmerIndex(self.flat)
+        return home._seed_index
+
     def _learn_seed_ub(self, lengths_np, scores, deferred=None) -> None:
         """Learn per-character score rates from a batch's scores.  Rates,
         not scores: streaming batches are sorted by length, so each has its
@@ -651,10 +746,7 @@ class BatchMapper:
         e = self.costs.gap_extend
         if e <= 0:
             return None
-        if self._seed_index is None:
-            with spans.span("seed.index"):
-                self._seed_index = KmerIndex(self.flat)
-        idx = self._seed_index
+        idx = self._kmer_index()
         if not idx.ok:
             return None
         jlo_np = query_end_lo(self.aln_type, lengths_np).astype(np.int64)
@@ -785,7 +877,7 @@ class BatchMapper:
                     f"{int(sc[b])} at end state (rank {int(er[b])}, offset "
                     f"{int(ej[b])}): {exc}") from exc
 
-        workers = max(1, min(len(queries), os.cpu_count() or 4))
+        workers = self._host_workers(len(queries))
         with spans.span("mapper.anchored_host"), \
                 ThreadPoolExecutor(max_workers=workers) as pool:
             out = list(pool.map(one, range(len(queries))))
@@ -797,3 +889,109 @@ class BatchMapper:
         spans.count("reads.device_traced", stats["device_traced"])
         spans.count("reads.host_backtraced", len(out) - stats["device_traced"])
         return out
+
+    # ---- replicas: one single-card mapper a mesh row ----------------------
+
+    def _on_cards(self, stage: str, jobs) -> list:
+        """Run each job, (card, reads, fn), as ``fn(replicas[card])`` on a
+        thread of its own bound to that card, under a ``mesh.shard`` span
+        (attrs ``card``, ``reads``, ``stage``) attached to the caller's
+        span; their results in the jobs' order.  The calling thread waits
+        in ``mesh.gather``; a card's failure reaches it once every job has
+        ended."""
+        if not jobs:
+            return []
+        caller = spans.current()
+
+        def run(card, reads, fn):
+            rep = self.replicas[card]
+            with spans.attach(caller), bound_to(rep.dg.device), \
+                    spans.span("mesh.shard", card=card, reads=reads,
+                               stage=stage):
+                return fn(rep)
+
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            futures = [pool.submit(run, *job) for job in jobs]
+            with spans.span("mesh.gather"):
+                return [f.result() for f in futures]
+
+    def _blocks(self, n: int):
+        """(card, rows) of each card's contiguous block of ``n`` reads."""
+        return [(card, np.arange(rows.start, rows.stop))
+                for card, (_, rows) in enumerate(dp_shards(self.mesh, n,
+                                                           None))]
+
+    def _prescore_dealt(self, queries, pool):
+        """:meth:`prescore` of each card's block on its replica; the
+        reads a card's corridors leave unresolved join its own part of
+        ``pool``."""
+        if pool is not None and not pool.parts:
+            pool.parts = [TailPool() for _ in self.replicas]
+
+        def job(card, rows):
+            block = queries[rows[0]:rows[-1] + 1]
+            part = None if pool is None else pool.parts[card]
+
+            def fn(rep):
+                rep.last_seed_stats = None
+                return rep.prescore(block, pool=part), rep.last_seed_stats
+            return card, rows.size, fn
+
+        blocks = self._blocks(len(queries))
+        got = self._on_cards("prescore", [job(*b) for b in blocks])
+        parts, deferred = [], []
+        for (card, rows), (token, _) in zip(blocks, got):
+            at = rows[TailPool.deferred(token)]
+            parts.append((card, rows, token))
+            deferred.append(at)
+            if pool is not None:
+                pool.reads += [queries[r] for r in at]
+                pool.cards += [card] * at.size
+        seed = [stats for _, stats in got]
+        self.last_seed_stats = _summed(seed, SEED_COUNTS)
+        if self.last_seed_stats is not None:
+            self.last_seed_stats["cards"] = seed
+        return _Dealt(queries, parts, np.concatenate(deferred))
+
+    def _fill_pool_dealt(self, pool):
+        """Each card fills its own part of ``pool`` on its replica."""
+        cards = np.asarray(pool.cards, dtype=np.int64)
+        held = [(card, np.nonzero(cards == card)[0])
+                for card in range(len(self.replicas)) if (cards == card).any()]
+        tokens = self._on_cards("pool", [
+            (card, rows.size,
+             lambda rep, part=pool.parts[card]: rep.fill_tail_pool(part))
+            for card, rows in held])
+        return _Dealt(pool.reads, [(card, rows, token) for (card, rows), token
+                                   in zip(held, tokens)],
+                      np.zeros(0, dtype=np.int64))
+
+    def _align_dealt(self, queries, prescored):
+        """:meth:`align_batch` of each card's rows on its replica, with the
+        card's own token where ``prescored`` is this batch's; the results
+        gathered in input order, the deferred rows left out."""
+        if isinstance(prescored, _Dealt) and prescored.queries is queries:
+            parts = prescored.parts
+        else:
+            parts = [(card, rows, None)
+                     for card, rows in self._blocks(len(queries))]
+        kept = [np.delete(rows, TailPool.deferred(token))
+                for _, rows, token in parts]
+
+        def job(card, rows, token, keep):
+            block = token[0] if token is not None \
+                else [queries[r] for r in rows]
+            return card, keep.size, \
+                lambda rep: (rep.align_batch(block, prescored=token),
+                             rep.last_banded_stats, rep.last_ends_free_stats)
+
+        got = self._on_cards("align", [job(*p, k)
+                                       for p, k in zip(parts, kept)])
+        results = [None] * len(queries)
+        for keep, (out, _, _) in zip(kept, got):
+            for r, res in zip(keep, out, strict=True):
+                results[r] = res
+        self.last_banded_stats = _summed([g[1] for g in got])
+        self.last_ends_free_stats = _summed([g[2] for g in got])
+        spans.count("reads.sharded", sum(k.size for k in kept))
+        return [r for r in results if r is not None]

@@ -18,6 +18,7 @@ the split, the per-shard launches and the gather with the real kernels.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -145,6 +146,15 @@ def dp_shards(mesh: Optional[Mesh], B: int,
     shards = [(mesh.devices[i, 0], slice(int(edges[i]), int(edges[i + 1])))
               for i in range(dp) if edges[i + 1] > edges[i]]
     return shards or [(mesh.first, slice(0, 0))]
+
+
+def bound_to(device):
+    """A context in which ``device`` is this thread's current card (a CPU
+    device binds nothing)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def gather(parts, device):

@@ -28,8 +28,8 @@ from dataclasses import dataclass, field
 
 from torch.autograd import profiler as _profiler
 
-__all__ = ["Span", "active", "attach", "count", "drain", "recording",
-           "span"]
+__all__ = ["Span", "active", "attach", "count", "current", "drain",
+           "recording", "span"]
 
 
 @dataclass(slots=True)
@@ -125,6 +125,16 @@ def _attached(parent: Span, attrs: dict):
         yield parent
     finally:
         stack.pop()
+
+
+def current() -> Span | None:
+    """The span open innermost on this thread (or the one :func:`attach`
+    hands it), to attach another thread's spans to; None while nothing
+    records or no span is open."""
+    if not (_forced or _profiler._is_profiler_enabled):
+        return None
+    stack = _stack()
+    return stack[-1] if stack else None
 
 
 def attach(parent: Span | None, **attrs):

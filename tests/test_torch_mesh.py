@@ -272,8 +272,11 @@ def test_batch_mapper_mesh_matches_reference(span, costs):
 
 
 def test_batch_mapper_mesh_routes_as_the_reference():
-    """Under a mesh: the banded route at every size, no capped ladder, no
-    seeding, and the trace on the mesh's first device."""
+    """Under a mesh: the banded route at every size for a global span.  An
+    ends-free span over a dp-only mesh keeps a replica a mesh row, each a
+    one-card mapper on its row's device that seeds its block; over sp > 1,
+    or under two-piece costs, the reference's route: no capped ladder, no
+    seeding, the trace on the mesh's first device."""
     g, queries = _case(seed=39)
     mesh = make_mesh(CPU8, dp=8)
     mapper = BatchMapper(g, COSTS, mesh)
@@ -281,20 +284,42 @@ def test_batch_mapper_mesh_routes_as_the_reference():
     assert mapper.takes_banded_path(queries)
     assert not one.takes_banded_path(queries)
     assert mapper.dg.device == mesh.first
+    assert mapper.replicas is None and mapper.scorer.mesh is mesh
     semi = BatchMapper(g, COSTS, mesh, aln_type=PORT_SEMI)
-    assert not semi._ef_cap_enabled()
-    assert semi.scorer.mesh is None and mapper.scorer.mesh is mesh
+    assert semi.scorer.mesh is None and len(semi.replicas) == 8
+    assert [r.dg.device for r in semi.replicas] == list(mesh.devices[:, 0])
+    assert all(r.mesh is None and r.replicas is None for r in semi.replicas)
+    # as one card's mapper: the capped ladder where the card is
+    assert [r._ef_cap_enabled() for r in semi.replicas] == \
+        [one._ef_cap_enabled()] * 8
+    others = [BatchMapper(g, COSTS, make_mesh(CPU8, dp=4, sp=2),
+                          aln_type=PORT_SEMI),
+              BatchMapper(g, COSTS_2P, mesh, aln_type=PORT_SEMI)]
     calls = []
 
-    def no_seed(*args, **kwargs):
-        calls.append(1)
+    def spy(m, key):
+        real = m._fill_ends_free_seeded
+
+        def seeded(*args, **kwargs):
+            calls.append(key)
+            return real(*args, **kwargs)
+        return seeded
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("POASTA_SEED", "all")
-        mp.setattr(semi, "_fill_ends_free_seeded", no_seed)
-        semi.align_batch(queries)
-        semi.align_batch(queries)
-    assert not calls
+        for card, rep in enumerate(semi.replicas):
+            mp.setattr(rep, "_fill_ends_free_seeded", spy(rep, card))
+        for m in [semi] + others:
+            mp.setattr(m, "_fill_ends_free_seeded", spy(m, "top"))
+        for m in [semi] + others:
+            want = _pairs(BatchMapper(g, m.costs, device="cpu",
+                                      aln_type=PORT_SEMI).align_batch(queries))
+            assert _pairs(m.align_batch(queries)) == want
+            assert _pairs(m.align_batch(queries)) == want
+    # each replica seeds its one read, twice; no other mapper seeds
+    assert sorted(calls) == sorted(list(range(8)) * 2)
+    for m in others:
+        assert m.replicas is None and not m._ef_cap_enabled()
 
 
 # ---- ROADMAP C13: a shard's failure reaches the caller ----------------------
