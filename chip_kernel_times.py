@@ -48,8 +48,10 @@ events, median of 5 after a warm-up:
   64 uniform reads (a batch of ``lasagna align -j 64``: Wb 1024, 6,086
   ranks), and with ``free_start`` on the pangenome configuration's second
   semi-global batch of 64 (traced from its end states: Wb 256, 50,002
-  ranks), whose seeded corridor fill gives B8 ``seed_end_states`` its
-  inputs (64 reads, Wb 2560), each at the widest call of its batch;
+  ranks, each read over its rank range where the tree's trace driver
+  gives one; the checksum over the rows it walks), whose seeded corridor
+  fill gives B8 ``seed_end_states`` its inputs (64 reads, Wb 2560), each
+  at the widest call of its batch;
 * B11's size, ``banded_end_rows`` (B1) on phase 11a's 40,002-rank graph
   and 64 reads of ~40 kb: at the inputs ``score_batch`` gives it (its
   second call), and at ``scripts/bigbanded_40k.py``'s fixed windows of ub
@@ -370,13 +372,23 @@ def main(argv) -> int:
         BatchMapper(graph, costs, device=dev,
                     aln_type=semi).score_batch(frags)
 
-    def report(name, what, fn):
+    def report(name, what, fn, view=None):
+        # the checksum is over ``view(out)`` where given: the rows that
+        # are compared
         out = fn()
         torch.cuda.synchronize()
+        if view is not None:
+            out = view(out)
         ts = [_time_ms(fn, 1) for _ in range(5)]
         print(f"[times] {name} {what}: median {statistics.median(ts):.3f} ms "
               f"of {[round(t, 3) for t in ts]}, checksum "
               f"{int(out.long().sum())}  [{card}]", flush=True)
+
+    def in_range(ptr, r_begin, r_end):
+        # B18's planes with each read's rows outside its rank range zeroed
+        r = torch.arange(ptr.shape[0], device=ptr.device).view(-1, 1)
+        walked = (r >= r_begin.view(1, -1)) & (r <= r_end.view(1, -1))
+        return torch.where(walked.unsqueeze(-1), ptr, 0)
 
     def plan(variant, dg, prep, q):
         return cf.variant_plan(variant, dg.window, prep["width"],
@@ -535,10 +547,19 @@ def main(argv) -> int:
     for name in ("B18 global", "B18 free_start"):
         args, _ = captured[name]
         t_dg, qpad, Wb, fs_t = args[0], args[1], args[6], args[7]
+        # the reads' rank ranges, where the tree's trace driver gives them:
+        # the checksum is over the rows they walk
+        rb, re = args[8:10] if len(args) > 9 else (None, None)
+        walked, view = "every rank", (lambda out: out[1])
+        if rb is not None:
+            share = int((re - rb + 1).sum()) / (int(qpad.shape[0])
+                                                 * t_dg.n_nodes)
+            walked = f"rank ranges, walked share {share:.4f}"
+            view = (lambda out, rb=rb, re=re: in_range(out[1], rb, re))
         report(name, f"{int(qpad.shape[0])} reads, LQ {int(qpad.shape[1])}, "
-               f"Wb {Wb}, {t_dg.n_nodes} ranks, free_start {fs_t}, plan "
-               f"{trace_mod.trace_plan(t_dg.window, Wb)}",
-               lambda: trace_mod.trace_fill(*args)[1])
+               f"Wb {Wb}, {t_dg.n_nodes} ranks, free_start {fs_t}, {walked}, "
+               f"plan {trace_mod.trace_plan(t_dg.window, Wb)}",
+               lambda: trace_mod.trace_fill(*args), view)
     args, _ = captured["B8"]
     s_dg, qs, r_begin, r_end, Wb, mr = (args[0], args[1], args[5], args[6],
                                         args[10], args[11])

@@ -555,6 +555,27 @@ def fill_bound(dg, B, lanes, q_lanes, out_lanes, tilted,
     return _bound(4 * (B * q_lanes + table_ints + B * out_lanes), ops)
 
 
+def walked_fields(res, r_begin, r_end, n_nodes):
+    """A ranged trace fill's walked share (its reads' ranks over reads x
+    ranks) and ``bound_walked_ms``: ``res``'s bound, which counts every
+    rank's cells, scaled to the cells the ranges walk."""
+    share = int((r_end.long() - r_begin.long() + 1).clamp(min=0).sum()) / (
+        int(r_begin.shape[0]) * n_nodes)
+    return {"walked_share": share,
+            "bound_walked_ms": res["bound_ms"] * share}
+
+
+def in_range(ptr, r_begin, r_end):
+    """``ptr`` (Np, B, Wb) with each read's rows outside its rank range
+    zeroed, as the plain trace fill leaves them: what B18's planes are
+    compared on."""
+    import torch
+
+    r = torch.arange(ptr.shape[0], device=ptr.device).view(-1, 1)
+    walked = (r >= r_begin.view(1, -1)) & (r <= r_end.view(1, -1))
+    return torch.where(walked.unsqueeze(-1), ptr, 0)
+
+
 # A plan's fields in the kernels line, for a row of either template.
 PLAN_FIELDS = ("body", "threads", "lanes_per_thread", "barriers_per_rank",
                "smem_bytes", "placement")
@@ -697,10 +718,11 @@ def _time_ms(fn, reps):
     return statistics.median(ts)
 
 
-def _compare(name, kernel_fn, plain_fn, card, reps=5):
+def _compare(name, kernel_fn, plain_fn, card, reps=5, view=None):
     """Kernel against plain version on the same inputs: raw rows must be
-    equal; returns the measured numbers.  The kernel's checking call is its
-    warm-up; the plain version (seconds of host-driven torch ops, no
+    equal (``view``, where given, picks from both outputs what is
+    compared); returns the measured numbers.  The kernel's checking call is
+    its warm-up; the plain version (seconds of host-driven torch ops, no
     compile step) is called once, and that call is the one timed."""
     import torch
 
@@ -708,6 +730,8 @@ def _compare(name, kernel_fn, plain_fn, card, reps=5):
     kept = []
     plain_ms = _time_ms(lambda: kept.append(plain_fn()), 1)
     ref = kept[0]
+    if view is not None:
+        got, ref = view(got), view(ref)
     torch.cuda.synchronize()
     gots = got if isinstance(got, tuple) else (got,)
     refs = ref if isinstance(ref, tuple) else (ref,)
@@ -1310,12 +1334,13 @@ def align_phases(card, dev, costs, graph, reads, scores, sg, s_reads):
         return out
 
     def rec_fill(g_dg, qpad, wstarts, anchor_r, anchor_j, c, Wb,
-                 free_start=False):
+                 free_start=False, r_begin=None, r_end=None):
+        # the global span: every rank walked, no range to keep
         captured.setdefault("fill", (g_dg, dict(
             qpad=qpad, wstarts=wstarts, anchor_r=anchor_r,
             anchor_j=anchor_j), c, Wb))
         return real_fill(g_dg, qpad, wstarts, anchor_r, anchor_j, c, Wb,
-                         free_start)
+                         free_start, r_begin, r_end)
 
     def rec_decode(ptr, *walk):
         captured.setdefault("decode", walk)
@@ -2147,28 +2172,43 @@ def pangenome_phases(card, dev, costs):
                          **fill_fields(sd.seed_plan(g_dg.window, Wb)))
 
     _, args, kwargs = captured["B18"]
-    g_dg, qpad, wst, ar, aj, c, Wb = args[:7]
-    fs = args[7] if len(args) > 7 else kwargs.get("free_start", False)
-    if not fs:
-        raise AssertionError("8d: the path's trace ran without free_start")
-    # the plain version walks 50k ranks at about a millisecond each whatever
-    # the batch, and holds planes of its own: the first 8 reads of the call
+    g_dg, qpad, wst, ar, aj, c, Wb, fs, rb, re = args
+    if not fs or rb is None:
+        raise AssertionError("8d: the path's trace ran without free_start "
+                             "or walked every rank")
+    # the plain version walks the ranks at about a millisecond each
+    # whatever the batch, and holds planes of its own: the first 8 reads of
+    # the call, over their rank ranges; compared on aval and the rows each
+    # read walks
     keep8 = slice(0, 8)
-    inp = dict(qpad=qpad[keep8].contiguous(), wstarts=wst[keep8].contiguous(),
-               anchor_r=ar[keep8].contiguous(), anchor_j=aj[keep8].contiguous())
+    inp = {k: v[keep8].contiguous() for k, v in (
+        ("qpad", qpad), ("wstarts", wst), ("anchor_r", ar), ("anchor_j", aj),
+        ("r_begin", rb), ("r_end", re))}
+    walked = int((re - rb + 1).sum()) / (int(qpad.shape[0]) * g_dg.n_nodes)
     print(f"[trace] pangenome main path: {int(qpad.shape[0])} reads in the "
-          f"call, compared and timed on its first 8; LQ {int(qpad.shape[1])}"
+          f"call, compared and timed on its first 8 (ranks "
+          f"{int(inp['r_begin'].min())}-{int(inp['r_end'].max())}); walked "
+          f"share of the call's ranks {walked:.4f}; LQ {int(qpad.shape[1])}"
           f", Wb {Wb}, free_start {fs}, plan "
           f"{tr.trace_plan(g_dg.window, Wb)}", flush=True)
     results["B18"] = _compare(
-        "B18 free_start main path (first 8 reads)",
+        "B18 free_start main path (first 8 reads, their ranges)",
         lambda: tr.trace_fill(g_dg, **inp, costs=c, Wb=Wb, free_start=True),
         lambda: tr.trace_fill_plain(g_dg, **inp, costs=c, Wb=Wb,
-                                    free_start=True), card, reps=3)
+                                    free_start=True), card, reps=3,
+        view=lambda out: (out[0], in_range(
+            out[1], inp["r_begin"], inp["r_end"])))
     results["B18"].update(fill_bound(
         g_dg, 8, Wb, int(qpad.shape[1]), g_dg.n_nodes * Wb + 1, tilted=True,
         per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS, table_cols=8),
         **fill_fields(tr.trace_plan(g_dg.window, Wb)))
+    results["B18"].update(walked_fields(results["B18"], inp["r_begin"],
+                                        inp["r_end"], g_dg.n_nodes))
+    print(f"[kernels] B18 free_start main path, first 8 reads: walked share "
+          f"{results['B18']['walked_share']:.4f}; bound "
+          f"{results['B18']['bound_ms']:.3f} ms over every rank's cells, "
+          f"{results['B18']['bound_walked_ms']:.3f} ms over the walked ones "
+          f" [{card}]", flush=True)
     results["B18"]["reads_compared"] = 8
 
     # the decode at the widest call's inputs (the planes of that call's
@@ -3475,8 +3515,9 @@ def scale_phases(card, dev, costs):
             raise AssertionError(f"13b: an alignment costs {cost}, scored "
                                  f"{score}, full fill {int(want)}")
     B, args, kwargs, (aval, ptr) = captured.pop("B18")
-    g_dg, qpad, wst, ar, aj, c, Wb = args[:7]
-    fs = args[7] if len(args) > 7 else kwargs.get("free_start", False)
+    g_dg, qpad, wst, ar, aj, c, Wb, fs, rb, re = args
+    if rb is None:
+        raise AssertionError("13b: the widest trace call walked every rank")
     Np = int(ptr.shape[0])
     elements = Np * B * Wb
     # the first rank whose rows lie wholly past 2^31 elements
@@ -3520,7 +3561,8 @@ def scale_phases(card, dev, costs):
         raise AssertionError("13b: no verified read's corridor lies past "
                              f"rank {past}")
     results = {}
-    inp = dict(qpad=qpad, wstarts=wst, anchor_r=ar, anchor_j=aj)
+    inp = dict(qpad=qpad, wstarts=wst, anchor_r=ar, anchor_j=aj, r_begin=rb,
+               r_end=re)
     del ptr, aval
     ms = _time_ms(lambda: tr.trace_fill(g_dg, **inp, costs=c, Wb=Wb,
                                         free_start=True), 3)
@@ -3540,9 +3582,14 @@ def scale_phases(card, dev, costs):
                      g_dg.n_nodes * Wb + 1, tilted=True,
                      per_pred=TRACE_PRED_OPS, per_rank=TRACE_OPS,
                      table_cols=8)}
+    results["B19"].update(walked_fields(results["B19"], rb, re,
+                                        g_dg.n_nodes))
     print(f"[kernels] B18 free_start at {g_dg.n_nodes} ranks: {ms:.3f} ms for "
-          f"{B} reads at Wb {Wb} (bound {results['B19']['bound_ms']:.3f} ms, "
-          f"plan {plan})  [{card}]", flush=True)
+          f"{B} reads at Wb {Wb} over their rank ranges (walked share "
+          f"{results['B19']['walked_share']:.4f}; bound "
+          f"{results['B19']['bound_ms']:.3f} ms over every rank's cells, "
+          f"{results['B19']['bound_walked_ms']:.3f} ms over the walked "
+          f"ones; plan {plan})  [{card}]", flush=True)
     del inp
 
     # the decode on the planes of the call that went past 2^31 elements

@@ -297,8 +297,10 @@ FILL_SPANS = ("ladder.fill", "ladder.full_fill", "seed.fill", "trace.fill")
 
 def stage_line(n_reads: int, recorded: dict) -> str:
     """``lasagna -v``'s line for one chunk, from what :func:`_flush_sorted`
-    recorded (``spans.drain()``): the wall, the host stages, the fills,
-    the alignment routes and the seeding outcome."""
+    recorded (``spans.drain()``): the wall, the host stages, the fills
+    (the cells they were handed, and the share of the trace fills' cells
+    that their rank ranges walked), the alignment routes and the seeding
+    outcome."""
     secs, n = {}, {}
     for s in recorded["spans"]:
         secs[s.name] = secs.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e9
@@ -309,6 +311,10 @@ def stage_line(n_reads: int, recorded: dict) -> str:
         return sum(secs.get(name, 0.0) for name in names)
 
     cells = sum(v for k, v in c.items() if k.startswith("cells."))
+    # the share of the trace fills' cells their rank ranges walked
+    handed = c.get("cells.trace_fill", 0)
+    walked = f"{c.get('trace.cells_walked', 0) / handed:.4f}" if handed \
+        else "-"
     return (
         f"INFO: aligned {n_reads} reads in {t('lasagna.chunk'):.2f}s "
         f"(prescore wait {t('lasagna.prescore_wait'):.2f}s, align "
@@ -316,8 +322,8 @@ def stage_line(n_reads: int, recorded: dict) -> str:
         f"host {t('seed.hits', 'seed.clusters', 'seed.certify'):.2f}s, "
         f"trace host {t('trace.inputs', 'trace.replay'):.2f}s; device "
         f"fills: {sum(n.get(f, 0) for f in FILL_SPANS)}, cells: {cells}, "
-        f"tiers: {n.get('ladder.tier', 0)}; device traced "
-        f"{c.get('reads.device_traced', 0)}, host backtraced "
+        f"trace cells walked {walked}, tiers: {n.get('ladder.tier', 0)}; "
+        f"device traced {c.get('reads.device_traced', 0)}, host backtraced "
         f"{c.get('reads.host_backtraced', 0)}; seeded "
         f"{c.get('reads.seeded', 0)}, tail {c.get('reads.seed_tail', 0)}, "
         f"certificate failed {c.get('reads.cert_failed', 0)}, pooled "

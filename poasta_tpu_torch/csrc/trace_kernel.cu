@@ -33,6 +33,14 @@
 // rank, anchor j): the end rank at the read's length for a global span, the
 // end state the scoring fill found for an ends-free one.
 //
+// Each read's block walks its ranks r_begin[b] ... r_end[b] (every rank
+// where no range is given).  The trace driver gives an anchored read the
+// ranks a path of cost <= its score can pass (ops/trace.py trace_ranges):
+// from the first rank whose corridor bounds are not empty to the anchor
+// rank.  The rings start at INF, so the first rank walked sees no
+// predecessor, as if every rank before it held INF.  Pointer rows outside
+// the range are left unwritten; the decode reads none of them.
+//
 // What bounds it on the H100: as in the banded fill, a read's ranks are a
 // sequential chain, one block walks them, and a rank is ~Wb lanes x (P
 // ring reads with their argmins + ~25 operations): a few thousand
@@ -85,7 +93,11 @@
 // 11.6 ms against the first body's 26.2, 1.9 us a rank; the anchored
 // trace's 64 reads x 50,002 ranks x 256 lanes (2 warps a block) take 59.1
 // ms against 81.4, 1.2 us a rank (chip_kernel_times.py, both in one call
-// on an H100).
+// on an H100).  Over each read's rank range that anchored call takes 7.9
+// ms (11.5% of its read-ranks walked), and 64 anchored reads over 200,002
+// ranks 7.8 ms against 247.1 for every rank (2.9% walked): ~1.4 us a rank
+// of the ~5,700 a read walks, so the corridor, not the graph, sets the
+// time (one call on an H100 80GB HBM3 at 700 W).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -113,6 +125,8 @@ __host__ __device__ inline int trace_side_ints(int W) {
     const int* __restrict__ wstarts,    /* (B, Np) window start per rank */   \
     const int* __restrict__ anchor_r,   /* (B,) */                            \
     const int* __restrict__ anchor_j,   /* (B,) */                            \
+    const int* __restrict__ r_begin,    /* (B,) first rank walked, or null */ \
+    const int* __restrict__ r_end,      /* (B,) last rank walked, or null */  \
     int B, int LQ, int Np, int n_nodes, int end_rank, int W, int P, int Wb,   \
     int o, int e, int x, int free_start,                                      \
     int* __restrict__ ptr,  /* (Np, B, Wb) pointer planes */                  \
@@ -179,6 +193,10 @@ trace_fill_kernel(TRACE_PARAMS) {
     const int* ws = wstarts + (long long)b * Np;
     const int ar = anchor_r[b];
     const int aj = anchor_j[b];
+    // the read's rank range: every rank without one (the block's threads
+    // all take the same bounds, so the barriers inside the loop stay whole)
+    const int r0 = r_begin ? max(r_begin[b], 0) : 0;
+    const int r1 = r_end ? min(r_end[b], n_nodes - 1) : n_nodes - 1;
     const int base = threadIdx.x * K;  // this thread's lanes [base, base + K)
     const bool active = base < Wb;     // Wb is a multiple of 128
     const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
@@ -198,7 +216,7 @@ trace_fill_kernel(TRACE_PARAMS) {
     if (threadIdx.x == 0) aval[b] = POASTA_INF;  // one lane matches later
     __syncthreads();
 
-    for (int r = 0; r < n_nodes; ++r) {
+    for (int r = r0; r <= r1; ++r) {
         const int sym = symbols[r];
         const int w_r = ws[r];
         const int* ps = pred_slots + (long long)r * P;
@@ -344,14 +362,15 @@ extern "C" int poasta_trace_plan(int W, int Wb, int* threads, int* mode,
 }
 
 // qpad starts 16-byte aligned and LQ is a multiple of 4 (int4 query
-// chunks); ptr starts 16-byte aligned.
+// chunks); ptr starts 16-byte aligned.  r_begin / r_end null: every read
+// walks every rank.
 extern "C" int poasta_trace_fill(
     const int* symbols, const int* pred_slots, const int* pred_valid,
     const int* wslots, const int* qpad, const int* wstarts,
-    const int* anchor_r, const int* anchor_j, int B, int LQ, int Np,
-    int n_nodes, int end_rank, int W, int P, int Wb, int o, int e, int x,
-    int free_start, int* ptr, int* aval, int* gws, long long gws_ints,
-    void* stream) {
+    const int* anchor_r, const int* anchor_j, const int* r_begin,
+    const int* r_end, int B, int LQ, int Np, int n_nodes, int end_rank,
+    int W, int P, int Wb, int o, int e, int x, int free_start, int* ptr,
+    int* aval, int* gws, long long gws_ints, void* stream) {
     PoastaPlan plan;
     cudaError_t err = trace_plan(W, Wb, &plan);
     if (err != cudaSuccess) return (int)err;
@@ -362,6 +381,6 @@ extern "C" int poasta_trace_fill(
     return (int)poasta_launch(
         trace_fill_kernel<TRACE_LANES>, B, plan, (cudaStream_t)stream,
         symbols, pred_slots, pred_valid, wslots, qpad, wstarts, anchor_r,
-        anchor_j, B, LQ, Np, n_nodes, end_rank, W, P, Wb, o, e, x,
-        free_start, ptr, aval, gws, plan.global_ints, plan.mode);
+        anchor_j, r_begin, r_end, B, LQ, Np, n_nodes, end_rank, W, P, Wb, o,
+        e, x, free_start, ptr, aval, gws, plan.global_ints, plan.mode);
 }

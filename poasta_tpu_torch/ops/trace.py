@@ -14,8 +14,10 @@ certified exact scores:
    as the banded fill) and writes one int32 pointer word per cell into
    (Np, B, Wb) planes, plus the anchor cell's value.  The anchor value
    equal to the certified score proves the corridor holds an optimal
-   path.  On a CUDA tensor it launches ``csrc/trace_kernel.cu``'s
-   ``trace_fill_kernel``; on a CPU tensor it runs :func:`trace_fill_plain`.
+   path.  An anchored read walks only the ranks a path of cost <= its
+   score can pass (:func:`trace_ranges`).  On a CUDA tensor it launches
+   ``csrc/trace_kernel.cu``'s ``trace_fill_kernel``; on a CPU tensor it
+   runs :func:`trace_fill_plain`.
 3. :func:`trace_decode` walks each verified read's pointer chain from the
    anchor and emits ``rank<<4 | op`` step words (CUDA:
    ``csrc/decode_kernel.cu``'s ``decode_warp_kernel``, a warp a read; CPU:
@@ -79,6 +81,22 @@ def _sched_potentials(flat, Np: int, device):
             torch.as_tensor(dmax, device=device))
 
 
+def _corridor_bounds(dmin, dmax, lengths, k, aj, a_dmin, a_dmax,
+                     n_real: int):
+    """(lo, hi (B, R), nonempty (B, R) bool): the offsets a path of gap
+    budget ``k`` through each of the R ranks of ``dmin`` towards the anchor
+    can consume (:func:`build_trace_schedule`'s lemma, in the operands'
+    integer type), and where they are not empty."""
+    K = k.clamp(min=0).view(-1, 1)
+    ajc = aj.view(-1, 1)
+    lo = ajc - (a_dmax.view(-1, 1) - dmax.view(1, -1)) - K
+    hi = torch.minimum(ajc - (a_dmin.view(-1, 1) - dmin.view(1, -1)) + K,
+                       lengths.view(-1, 1))
+    ridx = torch.arange(dmin.shape[0], dtype=torch.int64,
+                        device=dmin.device).view(1, -1)
+    return lo, hi, (ridx < n_real) & (lo <= hi) & (hi >= 0)
+
+
 def _schedule_body(dmin, dmax, lengths, k, aj, a_dmin, a_dmax, n_real: int,
                    Wb: int):
     """Per-read slope-limited 128-quantized window starts (int64 math).
@@ -88,13 +106,9 @@ def _schedule_body(dmin, dmax, lengths, k, aj, a_dmin, a_dmax, n_real: int,
     r_hi (B,) int64, the first and last rank whose bounds are not empty,
     and has (B,) bool, whether any rank's are)."""
     Np = dmin.shape[0]
-    K = k.clamp(min=0).view(-1, 1)
-    nb = lengths.view(-1, 1)
-    ajc = aj.view(-1, 1)
-    lo = ajc - (a_dmax.view(-1, 1) - dmax.view(1, -1)) - K
-    hi = torch.minimum(ajc - (a_dmin.view(-1, 1) - dmin.view(1, -1)) + K, nb)
+    lo, hi, nonempty = _corridor_bounds(dmin, dmax, lengths, k, aj, a_dmin,
+                                        a_dmax, n_real)
     ridx = torch.arange(Np, dtype=torch.int64, device=dmin.device).view(1, -1)
-    nonempty = (ridx < n_real) & (lo <= hi) & (hi >= 0)
     need = torch.where(nonempty, hi - (Wb - 1), 0)
     A = (need.clamp(min=0) + 127) // 128
     t = A - ridx
@@ -129,9 +143,19 @@ def build_trace_schedule(flat, lengths_np, k_np, Wb: int, Np: int,
     the read's bounds.
     """
     device = resolve_device(device)
+    steps, ok = _schedule_body(
+        *_anchored_operands(flat, lengths_np, k_np, Np, device, anchor_r_np,
+                            anchor_j_np), flat.n_nodes, Wb)[:2]
+    return steps, ok.cpu().numpy()
+
+
+def _anchored_operands(flat, lengths_np, k_np, Np: int, device, anchor_r_np,
+                       anchor_j_np):
+    """(dmin, dmax, lengths, k, aj, a_dmin, a_dmax) on ``device``, the
+    operands of :func:`_corridor_bounds` towards each read's anchor (None:
+    the global one)."""
     n = flat.n_nodes
     B = lengths_np.shape[0]
-    dmin_d, dmax_d = _sched_potentials(flat, Np, device)
 
     def put(v):
         return torch.as_tensor(np.asarray(v, dtype=np.int64), device=device)
@@ -145,10 +169,46 @@ def build_trace_schedule(flat, lengths_np, k_np, Wb: int, Np: int,
         ar = np.asarray(anchor_r_np).astype(np.int64)
         aj = anchor_j_np
         a_dmin, a_dmax = dmin[ar], dmax[ar]
-    steps, ok = _schedule_body(
-        dmin_d, dmax_d, put(lengths_np), put(k_np), put(aj), put(a_dmin),
-        put(a_dmax), n, Wb)[:2]
-    return steps, ok.cpu().numpy()
+    return (*_sched_potentials(flat, Np, device), put(lengths_np), put(k_np),
+            put(aj), put(a_dmin), put(a_dmax))
+
+
+def trace_ranges(flat, lengths_np, k_full_np, Np: int, device, anchor_r_np,
+                 anchor_j_np, free_start: bool):
+    """(r_begin, r_end) (B,) int32 on ``device``: the ranks an anchored
+    read's trace fill walks.  ``r_end`` is the anchor rank (a later rank
+    cannot reach it); ``r_begin`` is, with ``free_start``, the first rank
+    whose corridor bounds at the proven budget ``k_full_np`` are not empty,
+    else rank 0 (the one origin).
+
+    By :func:`build_trace_schedule`'s lemma with ub = the read's score and
+    K = its proven budget, every path of cost <= the score that ends at
+    the anchor lies in this range.  So the fill verifies the same reads
+    and decodes the same chains as a walk of every rank: a cell on an
+    optimal chain keeps its value, and every other candidate of its
+    pointer word can only rise, which keeps every tie as it was."""
+    device = resolve_device(device)
+    return _rank_range(
+        _anchored_operands(flat, lengths_np, k_full_np, Np, device,
+                           anchor_r_np, anchor_j_np) if free_start else None,
+        anchor_r_np, flat.n_nodes, device)
+
+
+def _rank_range(operands, anchor_r_np, n_real: int, device):
+    """:func:`trace_ranges` from :func:`_anchored_operands` at the proven
+    budgets (None: no free graph begin, every read from rank 0).  The
+    bounds are taken in int32 and only up to the last anchor rank."""
+    r_end = torch.as_tensor(np.asarray(anchor_r_np, np.int32), device=device)
+    if operands is None or not r_end.numel():
+        return torch.zeros_like(r_end), r_end
+    stop = int(np.max(anchor_r_np)) + 1
+    dmin, dmax, *per_read = (t.to(torch.int32) for t in operands)
+    nonempty = _corridor_bounds(dmin[:stop], dmax[:stop], *per_read,
+                                n_real)[2]
+    # the anchor's own rank is never empty, so the first one lies at or
+    # before it
+    r_begin = torch.argmax(nonempty.to(torch.int8), dim=1)
+    return r_begin.to(torch.int32).contiguous(), r_end
 
 
 def window_starts(steps: torch.Tensor) -> torch.Tensor:
@@ -178,20 +238,25 @@ def _roll1(t: torch.Tensor) -> torch.Tensor:
 
 def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
                      anchor_r: torch.Tensor, anchor_j: torch.Tensor, costs,
-                     Wb: int, free_start: bool = False):
+                     Wb: int, free_start: bool = False,
+                     r_begin: torch.Tensor | None = None,
+                     r_end: torch.Tensor | None = None):
     """Plain PyTorch version of the trace kernel.
 
     ``qpad``: (B, LQ) packed reads, LQ >= Wb + 128 (lanes past LQ read as
     0).  ``wstarts``: (B, Np) window starts (:func:`window_starts`).
     ``free_start``: the origin (a forced 0 at j = 0, and the pointer word
     that stops the walk) lies at every rank but the end rank, not only at
-    rank 0.
+    rank 0.  ``r_begin`` / ``r_end``: (B,) the first and last rank each
+    read walks (:func:`trace_ranges`); None walks every rank.
     Returns (aval (B,) int32: min of the untilted M at the anchor cell, or
-    INF; ptr (Np, B, Wb) int32 pointer planes, rows past the last rank 0).
+    INF; ptr (Np, B, Wb) int32 pointer planes, rows past the last rank and
+    outside a read's range 0).
 
     It walks the ranks as the reference kernel does: when a read's window
     steps, its query row and every ring row shift left by 128 lanes
-    (INF, or 0 for the query, coming in on the right).
+    (INF, or 0 for the query, coming in on the right).  A read outside its
+    range at a rank writes neither its ring slot nor its pointer row.
     """
     o, e, x = costs.gap_open, costs.gap_extend, costs.mismatch
     B, LQ = qpad.shape
@@ -212,7 +277,14 @@ def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
     valid = dg.pred_valid_flat.view(-1, P).tolist()
     wslots = dg.write_slots.tolist()
     prev = torch.zeros((B,), dtype=torch.int32, device=dev)
-    for r in range(n):
+    ranks = range(n)
+    if r_begin is not None:
+        ranks = range(int(r_begin.min()) if B else 0,
+                      min(int(r_end.max()) + 1, n) if B else 0)
+    for r in ranks:
+        # a walk that starts past rank 0 finds its first window where the
+        # steps before put it: the query row is gathered afresh there, and
+        # the rings hold INF alone until a read's range begins
         w_r = wstarts[:, r]
         stepped = (w_r > prev).view(-1, 1)
         if bool(stepped.any()):
@@ -275,20 +347,28 @@ def trace_fill_plain(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
             didx = _roll1(pmidx)
             M_final = M
             D_store = D
-        ptr[r] = (msrc | (didx << 2) | (isrc << 7) | (dsrc << 8)
-                  | (dpidx << 9)).to(torch.int32)
+        word = (msrc | (didx << 2) | (isrc << 7) | (dsrc << 8)
+                | (dpidx << 9)).to(torch.int32)
+        matched = (ar == r) & (j == aj)
+        ws = wslots[r]
+        if r_begin is not None:
+            walked = ((r_begin <= r) & (r <= r_end)).view(-1, 1)
+            word = torch.where(walked, word, 0)
+            matched = matched & walked
+            M_final = torch.where(walked, M_final, m_ring[ws])
+            D_store = torch.where(walked, D_store, d_ring[ws])
+        ptr[r] = word
 
         # anchor extraction (untilted: rows carry X(j) - e*j)
-        matched = (ar == r) & (j == aj)
         cand = torch.where(matched, M_final + e * j, INF).min(dim=1).values
         aval = torch.minimum(aval, cand)
-        m_ring[wslots[r]] = M_final
-        d_ring[wslots[r]] = D_store
+        m_ring[ws] = M_final
+        d_ring[ws] = D_store
     return aval, ptr
 
 
 def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb,
-                  free_start=False):
+                  free_start=False, r_begin=None, r_end=None):
     lib = build.load()
     dev = qpad.device
     B, LQ = qpad.shape
@@ -298,6 +378,12 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb,
                 "pred_slots": dg.pred_slots_flat,
                 "pred_valid": dg.pred_valid_flat,
                 "write_slots": dg.write_slots}
+    if (r_begin is None) != (r_end is None):
+        raise ValueError("a rank range needs both r_begin and r_end")
+    if r_begin is not None:
+        operands.update(r_begin=r_begin, r_end=r_end)
+        if tuple(r_begin.shape) != (B,) or tuple(r_end.shape) != (B,):
+            raise ValueError(f"rank ranges must have shape ({B},)")
     _check_operands(dev, **operands)
     if tuple(wstarts.shape) != (B, Np):
         raise ValueError(f"wstarts {tuple(wstarts.shape)} != {(B, Np)}")
@@ -318,7 +404,10 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb,
             dg.symbols.data_ptr(), dg.pred_slots_flat.data_ptr(),
             dg.pred_valid_flat.data_ptr(), dg.write_slots.data_ptr(),
             qpad.data_ptr(), wstarts.data_ptr(), anchor_r.data_ptr(),
-            anchor_j.data_ptr(), B, LQ, Np, dg.n_nodes, dg.end_rank_i,
+            anchor_j.data_ptr(),
+            None if r_begin is None else r_begin.data_ptr(),
+            None if r_end is None else r_end.data_ptr(), B, LQ, Np,
+            dg.n_nodes, dg.end_rank_i,
             dg.window, int(dg.pred_slots.shape[1]), Wb, costs.gap_open,
             costs.gap_extend, costs.mismatch, int(free_start), ptr.data_ptr(),
             aval.data_ptr(), gws.data_ptr(), gws.numel(),
@@ -330,20 +419,30 @@ def _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb,
 
 def trace_fill(dg, qpad: torch.Tensor, wstarts: torch.Tensor,
                anchor_r: torch.Tensor, anchor_j: torch.Tensor, costs,
-               Wb: int, free_start: bool = False):
+               Wb: int, free_start: bool = False,
+               r_begin: torch.Tensor | None = None,
+               r_end: torch.Tensor | None = None):
     """(aval (B,), ptr (Np, B, Wb)): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor (see :func:`trace_fill_plain`).  Counts
-    the cells it is handed, ranks (Np) x reads x Wb, as
-    ``cells.trace_fill``."""
+    plain version on a CPU tensor (see :func:`trace_fill_plain`).
+
+    ``r_begin`` / ``r_end``: (B,) int32 the first and last rank each read
+    walks (:func:`trace_ranges`), or None for every rank.  The kernel
+    leaves the pointer rows outside a read's range unwritten (what the
+    allocator gave); the plain version leaves them 0.
+
+    Counts the cells it is handed, ranks (Np) x reads x Wb, as
+    ``cells.trace_fill``.
+    """
     spans.count("cells.trace_fill",
                 dg.n_nodes_padded * int(qpad.shape[0]) * Wb)
     if qpad.device.type == "cuda":
-        return _launch_trace(dg, qpad, wstarts, anchor_r, anchor_j, costs,
-                             Wb, free_start)
-    if qpad.device.type == "cpu":
-        return trace_fill_plain(dg, qpad, wstarts, anchor_r, anchor_j, costs,
-                                Wb, free_start)
-    raise ValueError(f"no trace fill for device {qpad.device}")
+        fn = _launch_trace
+    elif qpad.device.type == "cpu":
+        fn = trace_fill_plain
+    else:
+        raise ValueError(f"no trace fill for device {qpad.device}")
+    return fn(dg, qpad, wstarts, anchor_r, anchor_j, costs, Wb, free_start,
+              r_begin, r_end)
 
 
 trace_fill.launches = 0
@@ -517,28 +616,38 @@ def pred_rank_table(dg, device) -> torch.Tensor:
 
 
 def tier_inputs(dg, flat, qshift, lengths_np, k_np, Wb: int,
-                anchor_r_np=None, anchor_j_np=None):
+                anchor_r_np=None, anchor_j_np=None, k_full_np=None,
+                free_start: bool = False):
     """The trace fill's inputs for a batch at tier width ``Wb`` with gap
     budgets ``k_np`` and per-read anchors (default: the global anchor):
     ({qpad, wstarts, anchor_r, anchor_j} on the batch's device, host ok
-    (B,))."""
+    (B,)).  With anchors and the proven budgets ``k_full_np`` they hold
+    each read's rank range too, r_begin and r_end (:func:`trace_ranges`),
+    from the same operands as the schedule."""
     dev = qshift.device
     B, L = int(qshift.shape[0]), int(qshift.shape[1])
-    steps, ok = build_trace_schedule(
-        flat, lengths_np, k_np, Wb, dg.n_nodes_padded, device=dev,
-        anchor_r_np=anchor_r_np, anchor_j_np=anchor_j_np)
+    operands = _anchored_operands(flat, lengths_np, k_np, dg.n_nodes_padded,
+                                  dev, anchor_r_np, anchor_j_np)
+    steps, ok = _schedule_body(*operands, flat.n_nodes, Wb)[:2]
     LQ = max(L, Wb + 128)
+    ranged = anchor_r_np is not None and k_full_np is not None
     if anchor_r_np is None:
         anchor_r_np = np.full((B,), dg.end_rank_i)
         anchor_j_np = lengths_np
-    return {
+    inp = {
         "qpad": torch.nn.functional.pad(qshift, (0, LQ - L)).contiguous(),
         "wstarts": window_starts(steps).contiguous(),
         "anchor_r": torch.as_tensor(
             np.asarray(anchor_r_np, np.int32), device=dev),
         "anchor_j": torch.as_tensor(
             np.asarray(anchor_j_np, np.int32), device=dev),
-    }, ok
+    }
+    if ranged:
+        k_full = torch.as_tensor(np.asarray(k_full_np, np.int64), device=dev)
+        inp["r_begin"], inp["r_end"] = _rank_range(
+            (*operands[:3], k_full, *operands[4:]) if free_start else None,
+            anchor_r_np, flat.n_nodes, dev)
+    return inp, ok.cpu().numpy()
 
 
 def free_bytes(dev) -> int:
@@ -569,6 +678,16 @@ def sub_batch_count(n_reads: int, per_read: int, free: int) -> int:
     return -(-n_reads // cap) if cap else 0
 
 
+def _cells_walked(dg, inp, Wb: int) -> int:
+    """The cells a trace fill on ``inp`` walks: each read's rank range
+    (both ends) x Wb, or every rank's where it has none."""
+    if "r_begin" not in inp:
+        return dg.n_nodes_padded * int(inp["qpad"].shape[0]) * Wb
+    span = (inp["r_end"].cpu().numpy().astype(np.int64)
+            - inp["r_begin"].cpu().numpy() + 1)
+    return int(span.clip(min=0).sum()) * Wb
+
+
 def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
                 anchor_j=None, free_start: bool = False):
     """Batched device alignments inside score-certified corridors.
@@ -585,7 +704,9 @@ def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
     budget, and run only the reads still pending, in sub-batches whose
     buffers take at most half of :func:`free_bytes`
     (:func:`sub_batch_count`).  A read whose buffers
-    alone pass that stops the tiers (it stays None).
+    alone pass that stops the tiers (it stays None).  With anchors, each
+    read's fill walks only the ranks of its corridor
+    (:func:`trace_ranges`); the global span's walks every rank.
     """
     from ..aligner.alignment import ArrayAlignment
 
@@ -621,16 +742,22 @@ def trace_align(dg, flat, qshift, lengths, costs, scores, anchor_r=None,
                 with spans.span("trace.inputs"):
                     q_sub = qshift.index_select(
                         0, torch.as_tensor(sub, device=dev))
+                    # an anchored read walks only its rank range
                     inp, ok = tier_inputs(
                         dg, flat, q_sub, lengths_np[sub], k_tier[idx], Wb,
                         None if ar_np is None else ar_np[sub],
-                        None if ar_np is None else aj_np[sub])
+                        None if ar_np is None else aj_np[sub],
+                        k_full[idx], free_start)
+                    # read before the launch, beside ok's own download
+                    walked = _cells_walked(dg, inp, Wb) if spans.active() \
+                        else 0
                 if not ok.any():
                     still.extend(sub)  # this width covers nobody here
                     continue
                 with spans.span("trace.fill"):
                     aval, ptr = trace_fill(dg, **inp, costs=costs, Wb=Wb,
                                            free_start=free_start)
+                    spans.count("trace.cells_walked", walked)
                     verified = (aval.cpu().numpy() == scores_np[sub]) & ok
                 if not verified.any():
                     still.extend(sub)

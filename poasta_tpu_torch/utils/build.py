@@ -116,7 +116,7 @@ def _load() -> ctypes.CDLL:
     lib.poasta_full_fill.restype = i
     lib.poasta_trace_plan.argtypes = [i, i, pi, pi, pi, pll, pi, pi]
     lib.poasta_trace_plan.restype = i
-    lib.poasta_trace_fill.argtypes = [p] * 8 + [i] * 12 + [p, p, p, ll, p]
+    lib.poasta_trace_fill.argtypes = [p] * 10 + [i] * 12 + [p, p, p, ll, p]
     lib.poasta_trace_fill.restype = i
     lib.poasta_decode_plan.argtypes = [i] * 2 + [pi] * 3
     lib.poasta_decode_plan.restype = i

@@ -244,6 +244,12 @@ def trace_case():
         reads.append(_mutate(rng, base[a:a + rng.randrange(90, 200)], 0.04)
                      .encode())
     reads.append((base[40:100] + base[160:230]).encode())  # a 60-base gap
+    return _anchored_case(g, reads)
+
+
+def _anchored_case(g, reads):
+    """Both packages' rows of ``reads`` and their exact end states under
+    the semi-global span."""
     case = _pack_both(g, reads)
     sc, er, ej = twf.dp_fill_ends_free_with_ends(
         case["tdg"], case["flat"], case["tq"], case["tl"], COSTS,
@@ -251,6 +257,48 @@ def trace_case():
     case.update(scores=sc.numpy().astype(np.int64), er=er.numpy(),
                 ej=ej.numpy(), lens=case["tl"].numpy())
     return case
+
+
+@pytest.fixture(scope="module")
+def deletion_case():
+    """Reads whose optimal path starts with a stretch of matches and then
+    deletes 24-64 graph bases, cheaper than inserting the stretch: each
+    starts that many ranks before its diagonal from the anchor, one or two
+    ranks inside its range."""
+    rng = random.Random(83)
+    # a line, so that the corridor's first rank lies at the path's start
+    g, base = _backbone_graph(rng, 480, skip_every=480)
+    reads = []
+    for p, d in ((40, 24), (60, 40), (90, 64), (70, 30)):
+        a = rng.randrange(0, 120)
+        reads.append((base[a:a + p] + base[a + p + d:a + p + d + 140])
+                     .encode())
+    return _anchored_case(g, reads)
+
+
+@pytest.fixture(scope="module")
+def start_case():
+    """Reads anchored within their proven gap budget of rank 0: a short
+    prefix of the graph after 40 inserted bases, and short mutated
+    prefixes."""
+    rng = random.Random(89)
+    g, base = _fused_graph(rng, 300, d=0.05)
+    ins = "".join(rng.choice("ACGT") for _ in range(40))
+    reads = [(ins + base[:20]).encode(), (ins[:24] + base[:36]).encode()]
+    reads += [_mutate(rng, base[:rng.randrange(30, 80)], 0.06).encode()
+              for _ in range(4)]
+    return _anchored_case(g, reads)
+
+
+@pytest.fixture(scope="module")
+def end_case():
+    """Reads cut from the graph's last bases: anchored at its last ranks."""
+    rng = random.Random(97)
+    g, base = _fused_graph(rng, 300, d=0.05)
+    reads = [base[-150:].encode(), base[-60:].encode()]
+    reads += [_mutate(rng, base[-rng.randrange(80, 200):], 0.04).encode()
+              for _ in range(4)]
+    return _anchored_case(g, reads)
 
 
 def _unpack_bits(packed, Np):
@@ -389,6 +437,123 @@ def test_anchored_trace_align_matches_native(trace_case):
         assert score == int(case["scores"][b])
         assert outs[b] is not None, f"read {b} not verified by any tier"
         assert list(outs[b]) == list(naln), b
+
+
+def _in_range(ptr, r_begin, r_end):
+    """``ptr`` (Np, B, Wb) with each read's rows outside its rank range
+    zeroed, as the plain trace fill leaves them: what a kernel's planes are
+    compared on."""
+    r = torch.arange(ptr.shape[0], device=ptr.device).view(-1, 1)
+    walked = (r >= r_begin.view(1, -1)) & (r <= r_end.view(1, -1))
+    return torch.where(walked.unsqueeze(-1), ptr, 0)
+
+
+# ---- the anchored trace over each read's rank range -------------------------------
+
+RANGE_CASES = ["trace_case", "deletion_case", "start_case", "end_case"]
+
+
+def _case_holds_its_shape(name, case, k_full):
+    """Each new fixture reaches the corner it was built for."""
+    flat = case["flat"]
+    if name == "start_case":
+        assert (case["er"] < k_full).any()
+    elif name == "end_case":
+        assert case["er"].max() >= flat.n_nodes - 3
+
+
+@pytest.mark.parametrize("Wb", [256, 512])
+@pytest.mark.parametrize("name", RANGE_CASES)
+def test_ranged_trace_equals_the_full_walk(request, name, Wb):
+    """``trace_align``'s ``free_start`` route at one tier: the plain trace
+    fill over each read's rank range (``trace_ranges``) verifies the same
+    reads as the walk over every rank, has the same anchor value wherever
+    that equals the score (and none below the full walk's anywhere), and
+    its planes decode to the same step words and alignments."""
+    case = request.getfixturevalue(name)
+    flat, dg = case["flat"], case["tdg"]
+    sc = case["scores"]
+    k, k_full = tr.gap_budgets(flat, sc, COSTS, Wb)
+    _case_holds_its_shape(name, case, k_full)
+    inp, ok = tr.tier_inputs(dg, flat, case["tq"], case["lens"], k, Wb,
+                             case["er"], case["ej"], k_full, True)
+    rb, re = inp.pop("r_begin"), inp.pop("r_end")
+    # the driver's ranges, from the schedule's operands, are trace_ranges'
+    want = tr.trace_ranges(flat, case["lens"], k_full, dg.n_nodes_padded,
+                           "cpu", case["er"], case["ej"], True)
+    assert torch.equal(rb, want[0]) and torch.equal(re, want[1])
+    assert np.array_equal(re.numpy(), case["er"])
+    assert (rb.numpy() <= case["er"]).all() and (rb.numpy() >= 0).all()
+    aval_f, ptr_f = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
+                                        free_start=True)
+    aval_r, ptr_r = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
+                                        free_start=True, r_begin=rb, r_end=re)
+    aval_f, aval_r = aval_f.numpy(), aval_r.numpy()
+    verified = (aval_f == sc) & ok
+    assert np.array_equal((aval_r == sc) & ok, verified)
+    assert verified.sum() >= len(sc) // 2
+    assert np.array_equal(aval_r[aval_f == sc], aval_f[aval_f == sc])
+    assert (aval_r >= aval_f).all()
+    # the rows outside a read's range stay 0
+    assert torch.equal(_in_range(ptr_r, rb, re), ptr_r)
+    t_max = int(-(-(int(case["lens"].max()) + int(k_full.max()) + 8)
+                  // 512) * 512)
+    walk = (tr.pred_rank_table(dg, "cpu"), inp["wstarts"], inp["anchor_r"],
+            inp["anchor_j"], dg.end_rank_i, torch.as_tensor(verified), t_max)
+    ops_f, done_f = tr.decode_plain(ptr_f, *walk)
+    ops_r, done_r = tr.decode_plain(ptr_r, *walk)
+    assert torch.equal(ops_r, ops_f) and torch.equal(done_r, done_f)
+    for b in np.nonzero(verified & done_f.numpy())[0]:
+        got = tr.replay_steps(ops_r[b].numpy(), int(case["ej"][b]),
+                              flat.node_of_rank)
+        want = tr.replay_steps(ops_f[b].numpy(), int(case["ej"][b]),
+                               flat.node_of_rank)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        steps = ops_r[b].numpy()
+        ranks = steps[steps != 0] >> 4
+        assert ranks.min() >= rb[b] and ranks.max() <= re[b]
+        if name == "deletion_case":
+            # the path starts well before its diagonal from the anchor
+            first = int(ranks[-1])
+            assert first < case["er"][b] - case["ej"][b] - 16, b
+            assert first <= rb[b] + 2, b  # and the range is tight there
+
+
+@pytest.mark.parametrize("name", RANGE_CASES[1:])
+def test_ranged_trace_align_matches_native(request, name):
+    """``trace_align`` with anchors, over each read's rank range, on the
+    reads that start before their diagonal and those anchored near either
+    end of the graph: every alignment equals the native engine's."""
+    case = request.getfixturevalue(name)
+    outs = tr.trace_align(case["tdg"], case["flat"], case["tq"], case["tl"],
+                          COSTS, case["scores"], anchor_r=case["er"],
+                          anchor_j=case["ej"], free_start=True)
+    na = NativeAligner(case["graph"])
+    for b, read in enumerate(case["reads"]):
+        score, naln = na.align_anchored(
+            read, COSTS, int(case["flat"].node_of_rank[case["er"][b]]),
+            int(case["ej"][b]), int(case["scores"][b]), free_start=True)
+        assert score == int(case["scores"][b])
+        assert outs[b] is not None, f"read {b} not verified by any tier"
+        assert list(outs[b]) == list(naln), b
+
+
+def test_trace_ranges_without_a_free_start(trace_case):
+    """Without ``free_start`` the one origin is rank 0: each read walks
+    from rank 0 to its anchor rank."""
+    case = trace_case
+    flat = case["flat"]
+    _, k_full = tr.gap_budgets(flat, case["scores"], COSTS, 256)
+    rb, re = tr.trace_ranges(flat, case["lens"], k_full,
+                             case["tdg"].n_nodes_padded, "cpu", case["er"],
+                             case["ej"], False)
+    assert not rb.any() and np.array_equal(re.numpy(), case["er"])
+    assert rb.dtype == re.dtype == torch.int32
+    inp, _ = tr.tier_inputs(case["tdg"], flat, case["tq"], case["lens"],
+                            k_full, 256, case["er"], case["ej"], k_full,
+                            False)
+    assert torch.equal(inp["r_begin"], rb) and torch.equal(inp["r_end"], re)
 
 
 # ---- the slice as a whole --------------------------------------------------------

@@ -598,12 +598,22 @@ def test_seed_kernel_matches_plain(card, shape, ub_rate):
         assert np.array_equal(g_arr[hit], e_arr.cpu().numpy()[hit])
 
 
+def _in_range(ptr, r_begin, r_end):
+    """``ptr`` (Np, B, Wb) with each read's rows outside its rank range
+    zeroed, as the plain trace fill leaves them: what a kernel's planes are
+    compared on."""
+    r = torch.arange(ptr.shape[0], device=ptr.device).view(-1, 1)
+    walked = (r >= r_begin.view(1, -1)) & (r <= r_end.view(1, -1))
+    return torch.where(walked.unsqueeze(-1), ptr, 0)
+
+
 @pytest.mark.parametrize("shape,Wb", [((1500, 64, 600), 256),
                                       ((1500, 64, 600), 4096),
                                       ((22000, 8, 900), 512)])
 def test_anchored_trace_kernel_matches_plain(card, shape, Wb):
-    """B18 with ``free_start`` and per-read anchors, and the decode over
-    its planes."""
+    """B18 with ``free_start`` and per-read anchors, over every rank and
+    over each read's rank range as ``trace_align`` gives it (``aval`` and
+    the rows each read walks), and the decode over its planes."""
     g, reads = _backbone_case(25, *shape)
     flat = g.flatten()
     dg = DeviceGraph.build(flat, device=card)
@@ -628,8 +638,82 @@ def test_anchored_trace_kernel_matches_plain(card, shape, Wb):
     walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
             inp["anchor_j"], dg.end_rank_i,
             torch.as_tensor(verified, device=card), t_max)
-    done = _decode_held(ptr, walk)[1]
+    ops, done = _decode_held(ptr, walk)
     assert bool(done[torch.as_tensor(verified, device=card)].all())
+    rb, re = tr.trace_ranges(flat, lens, k_full, dg.n_nodes_padded, card, er,
+                             ej, True)
+    aval_r, ptr_r = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb,
+                                  free_start=True, r_begin=rb, r_end=re)
+    aval_rp, ptr_rp = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
+                                          free_start=True, r_begin=rb,
+                                          r_end=re)
+    assert torch.equal(aval_r, aval_rp)
+    assert torch.equal(_in_range(ptr_r, rb, re), ptr_rp)
+    assert np.array_equal((aval_r.cpu().numpy() == sc) & ok, verified)
+    ops_r, done_r = _decode_held(ptr_r, walk)
+    assert torch.equal(ops_r, ops) and torch.equal(done_r, done)
+
+
+def test_anchored_trace_range_past_rank_0(card):
+    """B18 over rank ranges that start past rank 0 (reads from the second
+    half of a 3,000-node backbone): the kernel leaves the rows outside a
+    read's range unwritten, whatever the planes held before (the
+    allocator's block is filled with a pattern first), and ``aval``, the
+    walked rows and the decoded chains equal the plain version's and the
+    full walk's."""
+    rng = random.Random(137)
+    n, Wb = 3000, 256
+    g, base = _backbone(rng, n, 500)
+    reads = []
+    for i in range(24):
+        a = rng.randrange(1600, n - 700)
+        read = base[a:a + 600]
+        if i % 4 == 0:  # 40 matches, then a 30-base deletion
+            read = base[a:a + 40] + base[a + 70:a + 630]
+        reads.append(_mutate(rng, read, 0.015).encode())
+    flat = g.flatten()
+    dg = DeviceGraph.build(flat, device=card)
+    q, lengths = pack_queries(reads, device=card)
+    free_start, end_ok, jlo = ends_free_device_params(
+        flat, SEMI_GLOBAL, lengths, dg.n_nodes_padded)
+    sc, er, ej = (t.cpu().numpy() for t in cf.bounded_with_ends(
+        dg, q, lengths, COSTS, free_start, end_ok, jlo))
+    lens = lengths.cpu().numpy()
+    k_tier, k_full = tr.gap_budgets(flat, sc, COSTS, Wb)
+    inp, ok = tr.tier_inputs(dg, flat, q, lens, k_tier, Wb, er, ej)
+    rb, re = tr.trace_ranges(flat, lens, k_full, dg.n_nodes_padded, card, er,
+                             ej, True)
+    assert int(rb.min()) > 1000
+    aval, ptr = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb, free_start=True)
+    torch.cuda.synchronize()
+    del ptr
+    # the next planes reuse the freed block: fill it with a pattern the
+    # ranged fill must leave where it walks nothing
+    junk = torch.full((dg.n_nodes_padded, len(reads), Wb), 0x5A5A5A5A,
+                      dtype=torch.int32, device=card)
+    del junk
+    aval_r, ptr_r = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb,
+                                  free_start=True, r_begin=rb, r_end=re)
+    torch.cuda.synchronize()
+    aval_p, ptr_p = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
+                                        free_start=True, r_begin=rb,
+                                        r_end=re)
+    assert torch.equal(aval_r, aval_p)
+    assert torch.equal(_in_range(ptr_r, rb, re), ptr_p)
+    # below every read's range: the pattern, never written
+    assert bool((ptr_r[:int(rb.min())] == 0x5A5A5A5A).all())
+    verified = (aval.cpu().numpy() == sc) & ok
+    assert verified.sum() >= len(reads) - 2
+    assert np.array_equal((aval_r.cpu().numpy() == sc) & ok, verified)
+    t_max = int(-(-(int(lens.max()) + int(k_full.max()) + 8) // 512) * 512)
+    walk = (tr.pred_rank_table(dg, card), inp["wstarts"], inp["anchor_r"],
+            inp["anchor_j"], dg.end_rank_i,
+            torch.as_tensor(verified, device=card), t_max)
+    ops_r, done_r = _decode_held(ptr_r, walk)
+    ops, done = tr.trace_decode(tr.trace_fill(
+        dg, **inp, costs=COSTS, Wb=Wb, free_start=True)[1], *walk)
+    assert torch.equal(ops_r, ops) and torch.equal(done_r, done)
+    assert bool(done_r[torch.as_tensor(verified, device=card)].all())
 
 
 def test_anchored_trace_and_decode_past_2_31_plane_elements(card):
@@ -1507,6 +1591,8 @@ def _trace_inputs(card, dg, q, lengths, Wb, rng, steps, anchor):
 
 
 def _trace_check(dg, inp, Wb, free_start):
+    """B18 against its plain version: ``aval`` and the pointer rows each
+    read walks (every row where ``inp`` gives no rank range)."""
     before = tr.trace_fill.launches
     aval, ptr = tr.trace_fill(dg, **inp, costs=COSTS, Wb=Wb,
                               free_start=free_start)
@@ -1514,8 +1600,20 @@ def _trace_check(dg, inp, Wb, free_start):
     assert tr.trace_fill.launches == before + 1
     aval_p, ptr_p = tr.trace_fill_plain(dg, **inp, costs=COSTS, Wb=Wb,
                                         free_start=free_start)
+    if "r_begin" in inp:
+        ptr = _in_range(ptr, inp["r_begin"], inp["r_end"])
     assert torch.equal(aval, aval_p) and torch.equal(ptr, ptr_p), (
         Wb, free_start)
+
+
+def _trace_ranges(card, dg, B, rng):
+    """Random rank ranges inside the graph, one of them a single rank and
+    one empty."""
+    lo = rng.integers(0, dg.n_nodes, B)
+    hi = lo + rng.integers(0, dg.n_nodes - lo)
+    hi[0], hi[-1] = lo[0], lo[-1] - 1
+    return {"r_begin": torch.as_tensor(lo.astype(np.int32), device=card),
+            "r_end": torch.as_tensor(hi.astype(np.int32), device=card)}
 
 
 @pytest.mark.parametrize("Wb", TRACE_WIDTHS)
@@ -1533,6 +1631,11 @@ def test_trace_register_body_matches_plain(card, Wb):
                        (False, "inside")):
         _trace_check(dg, _trace_inputs(card, dg, q, lengths, Wb, rng, steps,
                                        anchor), Wb, fs)
+    # rank ranges: each block starts and ends its walk where its read's
+    # range says
+    inp = _trace_inputs(card, dg, q, lengths, Wb, rng, steps, "inside")
+    inp.update(_trace_ranges(card, dg, int(q.shape[0]), rng))
+    _trace_check(dg, inp, Wb, True)
 
 
 def _seed_inputs(card, dg, lengths, Wb, rng, steps, ranges):

@@ -181,12 +181,14 @@ def test_cell_counters_equal_the_launch_arithmetic(monkeypatch):
     against the planes each trace fill returned, each seed fill's rank
     ranges times its width, and ranks x padded length x reads of each
     capped full fill, every cap retry included (the capped ladder driven
-    on the CPU)."""
+    on the CPU); ``trace.cells_walked`` against each trace fill's rank
+    ranges (both ends included) times its width, below the cells handed
+    (the semi-global span's free graph begin)."""
     monkeypatch.setenv("POASTA_SEED", "all")
     monkeypatch.setattr(mapper_mod.BatchMapper, "_ef_cap_enabled",
                         lambda self: True)
     want = {"cells.trace_fill": 0, "cells.seed_fill": 0,
-            "cells.tail_fill": 0}
+            "cells.tail_fill": 0, "trace.cells_walked": 0}
     calls = {k: 0 for k in want}
     real_trace, real_seed = trace_mod.trace_fill, seed_mod.seed_end_states
     real_full = mapper_mod.dp_fill_ends_free_with_ends
@@ -195,6 +197,11 @@ def test_cell_counters_equal_the_launch_arithmetic(monkeypatch):
         aval, ptr = real_trace(*args, **kwargs)
         want["cells.trace_fill"] += ptr.numel()
         calls["cells.trace_fill"] += 1
+        span = (kwargs["r_end"].numpy().astype(np.int64)
+                - kwargs["r_begin"].numpy().astype(np.int64) + 1)
+        want["trace.cells_walked"] += int(np.clip(span, 0, None).sum()) \
+            * kwargs["Wb"]
+        calls["trace.cells_walked"] += 1
         return aval, ptr
 
     def seed_end_states(dg, qshift, wstarts, lengths, jlo, r_begin, r_end,
@@ -224,6 +231,7 @@ def test_cell_counters_equal_the_launch_arithmetic(monkeypatch):
     counts = spans.drain()["counts"]
     assert {k: counts[k] for k in want} == want
     assert min(calls.values()) > 0
+    assert 0 < counts["trace.cells_walked"] < counts["cells.trace_fill"]
     # the first batch's full fill verifies at a first cap or retries
     assert calls["cells.tail_fill"] >= 2
     assert counts["reads.seed_tail"] >= 1
@@ -273,6 +281,57 @@ def test_pooled_tail_cells_under_seed_tail_pool(monkeypatch):
     assert "seed.tail" not in {s.name for s in rec["spans"]}
 
 
+def test_trace_cells_walked_once_a_launch(monkeypatch):
+    """``trace.cells_walked`` moves once a trace fill, right after its
+    ``cells.trace_fill``, by its reads' rank ranges times its width: on an
+    anchored trace no more than the cells it was handed, and on a
+    global-span trace (no range: every rank) exactly those."""
+    g, reads = _mapping_workload(seed=61, n_reads=4)
+    real_trace, real_count = trace_mod.trace_fill, spans.count
+    log = []
+
+    def trace_fill(*args, **kwargs):
+        rb, re = kwargs.get("r_begin"), kwargs.get("r_end")
+        log.append(("launch", None if rb is None else int(
+            (re.long() - rb.long() + 1).clamp(min=0).sum()) * kwargs["Wb"]))
+        return real_trace(*args, **kwargs)
+
+    def count(name, n=1):
+        if name in ("cells.trace_fill", "trace.cells_walked"):
+            log.append((name, int(n)))
+        real_count(name, n)
+
+    monkeypatch.setattr(trace_mod, "trace_fill", trace_fill)
+    monkeypatch.setattr(spans, "count", count)
+    monkeypatch.setattr(BatchMapper, "DENSE_TABLE_BUDGET", 0)
+    for mapper, anchored in ((_semi_mapper(g), True),
+                             (BatchMapper(g, COSTS, device="cpu"), False)):
+        log.clear()
+        with spans.recording():
+            mapper.align_batch(reads)
+        assert log and len(log) % 3 == 0
+        for (launch, ranged), (handed_k, handed), (walked_k, walked) in zip(
+                log[0::3], log[1::3], log[2::3]):
+            assert (launch, handed_k, walked_k) == (
+                "launch", "cells.trace_fill", "trace.cells_walked")
+            assert (ranged is not None) == anchored
+            if anchored:
+                assert 0 < walked == ranged <= handed
+            else:
+                assert walked == handed
+
+
+def test_stage_line_prints_the_walked_share():
+    """``lasagna -v``'s line gives the walked share of the trace fills'
+    cells; its ``cells:`` total sums the ``cells.*`` counters alone."""
+    counts = {"cells.trace_fill": 4000, "cells.seed_fill": 600,
+              "trace.cells_walked": 120, "reads.device_traced": 3}
+    line = lasagna.stage_line(3, {"spans": [], "counts": counts})
+    assert "cells: 4600, trace cells walked 0.0300, tiers: 0;" in line
+    line = lasagna.stage_line(3, {"spans": [], "counts": {}})
+    assert "cells: 0, trace cells walked -, tiers: 0;" in line
+
+
 def _cli_inputs(tmp_path, g, reads):
     gfa, fa = tmp_path / "graph.gfa", tmp_path / "reads.fa"
     with open(gfa, "w") as fh:
@@ -310,7 +369,8 @@ def test_lasagna_verbose_stage_line(tmp_path, monkeypatch, capsys):
     m = re.fullmatch(
         r"INFO: aligned 6 reads in [\d.]+s \(prescore wait [\d.]+s, align "
         r"[\d.]+s, emit [\d.]+s, seeding host [\d.]+s, trace host [\d.]+s; "
-        r"device fills: (\d+), cells: (\d+), tiers: (\d+); device traced "
+        r"device fills: (\d+), cells: (\d+), trace cells walked 1\.0000, "
+        r"tiers: (\d+); device traced "
         r"(\d+), host backtraced (\d+); seeded 0, tail 0, certificate "
         r"failed 0, pooled 0\)", line)
     assert m, line

@@ -29,8 +29,9 @@ Held with tolerance 0 to the port's plain versions (``ops/trace.py:
 trace_fill_plain``, ``ops/seed.py:seed_end_states_plain``) by hypothesis
 over Wb (multiples of 128 up to 4096), K in {4, 8, 16}, caps 1 to Wb + 1,
 P = 4 with invalid slots and all-INF ties, random window steps, anchors
-inside and outside their windows, ``free_start`` on and off, empty,
-one-rank and wide rank ranges and sparse and dense end masks; and to the
+inside and outside their windows, ``free_start`` on and off, every rank
+(the trace without a range) or empty, one-rank and wide rank ranges (each
+block walking only its read's), and sparse and dense end masks; and to the
 reference's Pallas ``_trace_kernel`` and ``_seed_kernel`` in interpret
 mode.
 """
@@ -82,10 +83,12 @@ def _at_anchor(aval, vals, j, aj):
 
 
 def model_trace(dg, qpad, wstarts, anchor_r, anchor_j, consts, Wb, K,
-                free_start=False, wrap=True):
+                free_start=False, wrap=True, r_begin=None, r_end=None):
     """The trace kernel's register body: (aval (B,), ptr (Np, B, Wb)).
     ``wrap=False`` gives thread 0 no left lane (the rule the kernel must
-    not follow: lane 0's column then ignores lane Wb - 1)."""
+    not follow: lane 0's column then ignores lane Wb - 1).  ``r_begin`` /
+    ``r_end``: (B,) the first and last rank each read's block walks (None:
+    every rank); the rows it does not walk stay 0 here."""
     o, e, x = consts
     B, LQ = qpad.shape
     assert Wb % 128 == 0 and LQ % 4 == 0
@@ -104,7 +107,9 @@ def model_trace(dg, qpad, wstarts, anchor_r, anchor_j, consts, Wb, K,
         mring = np.full((W, Wb), INF, dtype=np.int64)
         dring = np.full((W, Wb), INF, dtype=np.int64)
         sstart = np.zeros(W, dtype=np.int64)
-        for r in range(n):
+        r0 = 0 if r_begin is None else max(int(r_begin[b]), 0)
+        r1 = n - 1 if r_end is None else min(int(r_end[b]), n - 1)
+        for r in range(r0, r1 + 1):
             w_r = int(wstarts[b, r])
             is_end = r == dg.end_rank_i
             origin = (not is_end) if free_start else r == 0
@@ -333,15 +338,37 @@ def trace_inputs(case, Wb, steps, rng, anchor):
 
 
 def _check_trace(case, tc, inp, Wb, K, free_start):
+    """The model against the plain version on the same inputs, a rank
+    range in ``inp`` or not: the planes (the rows a read does not walk
+    are 0 in both) and ``aval``."""
     consts = (tc.gap_open, tc.gap_extend, tc.mismatch)
+    ranges = {k: inp[k].numpy() for k in ("r_begin", "r_end") if k in inp}
     got = model_trace(case["tdg"], inp["qpad"].numpy(),
                       inp["wstarts"].numpy(), inp["anchor_r"].numpy(),
-                      inp["anchor_j"].numpy(), consts, Wb, K, free_start)
+                      inp["anchor_j"].numpy(), consts, Wb, K, free_start,
+                      **ranges)
     aval, ptr = tr.trace_fill_plain(case["tdg"], **inp, costs=tc, Wb=Wb,
                                     free_start=free_start)
     np.testing.assert_array_equal(got[1], ptr.numpy())
     np.testing.assert_array_equal(got[0], aval.numpy())
     return got
+
+
+def rank_ranges(rng, B, n, kind):
+    """(r_begin, r_end) (B,) int32: "none" (every rank: no range), "wide"
+    (a random range inside the graph), "one" (a single rank), "empty"
+    (r_end before r_begin)."""
+    if kind == "none":
+        return {}
+    lo = rng.integers(0, n, B)
+    if kind == "wide":
+        hi = lo + rng.integers(0, n - lo)
+    elif kind == "one":
+        hi = lo
+    else:
+        hi = lo - 1
+    return {"r_begin": torch.as_tensor(lo.astype(np.int32)),
+            "r_end": torch.as_tensor(hi.astype(np.int32))}
 
 
 # ---- the trace model against the port's plain version --------------------------
@@ -355,6 +382,7 @@ def trace_case(draw):
             "free_start": draw(st.booleans()),
             "rate": draw(st.sampled_from([0.0, 0.15, 0.6])),
             "anchor": draw(st.sampled_from(["end", "inside", "outside"])),
+            "range": draw(st.sampled_from(["none", "wide", "one", "empty"])),
             "tie": draw(st.booleans()), "n": draw(st.integers(6, 24)),
             "seed": draw(st.integers(0, 2**31 - 1))}
 
@@ -369,6 +397,7 @@ def test_trace_model_matches_plain(c):
     steps = random_steps(rng, 2, case["tdg"].n_nodes_padded, c["n"],
                          c["rate"])
     inp = trace_inputs(case, c["Wb"], steps, rng, c["anchor"])
+    inp.update(rank_ranges(rng, 2, case["tdg"].n_nodes, c["range"]))
     _check_trace(case, tc, inp, c["Wb"], c["K"], c["free_start"])
 
 
